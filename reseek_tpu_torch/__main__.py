@@ -1,0 +1,142 @@
+"""Command line of the port.
+
+Usage:  python -m reseek_tpu_torch search INPUT (--sensitive |
+        --verysensitive | --fast) [-o OUT] [--columns ...]
+        [--engine auto|device|host] [--device cuda|cpu]
+
+The all-vs-all self-search is ported; ``--db`` (query-vs-DB and -fast),
+``--global`` and the multi-host flags are not ported yet and exit with an
+error.  The argument helpers and the parameter handling follow
+reseek_tpu.cli's ``search`` command.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import List, Optional
+
+from reseek_tpu.cli import (_add_mode_args, _mode_from_args,
+                            _read_chains_or_artifact)
+
+NOT_PORTED = ("db", "dbmu", "global_aln", "idxq", "idxt", "procid", "coord",
+              "scratch", "resume")
+
+
+def cmd_search(args) -> int:
+    from reseek_tpu.align.output import parse_columns
+    from reseek_tpu.constants import DSSParams
+    from reseek_tpu.search.driver import SearchOptions
+    from reseek_tpu.utils.logger import open_log
+    from reseek_tpu_torch.device import disable_tf32
+    from reseek_tpu_torch.search.driver import self_search
+
+    flags = [f for f in NOT_PORTED if getattr(args, f)]
+    if args.nprocs > 1:
+        flags.append("nprocs")
+    if flags:
+        print("reseek_tpu_torch search: not ported yet: "
+              + ", ".join("--" + f.replace("_aln", "") for f in flags),
+              file=sys.stderr)
+        return 2
+    mode = _mode_from_args(args)
+    if args.params:
+        params = DSSParams.from_tsv(args.params)
+        params.mode = mode
+    elif args.paramstr:
+        params = DSSParams.from_param_str(args.paramstr)
+        params.mode = mode
+    else:
+        params = DSSParams.create(mode)
+    if args.omega is not None:
+        params.omega = args.omega
+    if args.minfwdscore is not None:
+        params.min_fwd_score = args.minfwdscore
+    # positive-penalty convention on the command line (reference usage.h)
+    if args.gapopen is not None:
+        params.gap_open = -abs(args.gapopen)
+    if args.gapext is not None:
+        params.gap_ext = -abs(args.gapext)
+    open_log(args.log)
+    disable_tf32()
+
+    max_e = args.evalue if args.evalue is not None else (
+        float("inf") if mode == "verysensitive" else 10.0)
+    trace = ((args.label1, args.label2)
+             if args.label1 and args.label2 else None)
+    options = SearchOptions(columns=parse_columns(args.columns),
+                            max_evalue=max_e, no_self=args.noself,
+                            mode=mode,
+                            scores_are_not_evalues=args.scores_are_not_evalues,
+                            trace_labels=trace)
+    out = open(args.output, "w") if args.output else sys.stdout
+    aln = open(args.aln, "w") if args.aln else None
+    options.aln_out = aln
+    try:
+        chains = _read_chains_or_artifact(args.input, params)
+        drv = self_search(chains, params, options, out, engine=args.engine,
+                          device=args.device)
+        drv.run_stats(n_threads=max(1, args.threads))
+    finally:
+        if args.output:
+            out.close()
+        if aln:
+            aln.close()
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m reseek_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("search", help="all-vs-all structure search")
+    p.add_argument("input")
+    _add_mode_args(p)
+    p.add_argument("--output", "-o")
+    p.add_argument("--columns", default="std")
+    p.add_argument("--evalue", type=float)
+    p.add_argument("--omega", type=float)
+    p.add_argument("--minfwdscore", type=float)
+    p.add_argument("--gapopen", type=float,
+                   help="gap-open penalty (>= 0 convention)")
+    p.add_argument("--gapext", type=float,
+                   help="gap-extend penalty (>= 0 convention)")
+    p.add_argument("--noself", action="store_true")
+    p.add_argument("--scores-are-not-evalues", dest="scores_are_not_evalues",
+                   action="store_true", help="disable the E-value output gate")
+    p.add_argument("--threads", type=int, default=0,
+                   help="host threads reported in the run stats")
+    p.add_argument("--log", help="write a log file (reference -log)")
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "device", "host"],
+                   help="device engine, or reseek_tpu's host per-pair path "
+                        "(default: device when a CUDA card is present)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="torch device of the device engine")
+    p.add_argument("--params", help="name<TAB>value parameter file")
+    p.add_argument("--paramstr", help="AA:0.4_Conf:0.2_... parameter string")
+    p.add_argument("--aln", help="write pretty alignment blocks")
+    p.add_argument("--label1", help="with --label2: log a pipeline trace "
+                                    "for this chain pair")
+    p.add_argument("--label2")
+    # accepted so that reseek_tpu command lines fail clearly
+    p.add_argument("--db")
+    p.add_argument("--dbmu")
+    p.add_argument("--global", dest="global_aln", action="store_true")
+    p.add_argument("--idxq", action="store_true")
+    p.add_argument("--idxt", action="store_true")
+    p.add_argument("--nprocs", type=int, default=1)
+    p.add_argument("--procid", type=int)
+    p.add_argument("--coord")
+    p.add_argument("--scratch")
+    p.add_argument("--resume", action="store_true")
+    p.set_defaults(fn=cmd_search)
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

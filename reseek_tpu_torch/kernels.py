@@ -1,0 +1,114 @@
+"""Build and ctypes binding of the port's hand-written CUDA kernels.
+
+The sources in ``csrc/`` have a plain C interface (no PyTorch headers),
+so one ``nvcc`` call builds them into a shared library in seconds.  The
+build runs at first use, into ``reseek_tpu_torch/_build/`` (git-ignored),
+and is reused while it is newer than every source.  Nothing here runs at
+import time: this module imports on machines without ``nvcc``.
+
+Every C entry launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` turns a non-zero code into an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "_build"
+SOURCES = ("mu_sweep.cu", "sw_traceback.cu", "postalign.cu")
+LIB_NAME = "libreseek_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argument types of each C entry (pointers and the stream as void*)
+_SIGNATURES = {
+    "mu_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "sw_traceback": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "walk_traceback": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "lddt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float   # nvcc wall time; 0.0 when an up-to-date build was reused
+    log: str         # nvcc output (-Xptxas -v: registers, smem, spills)
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+@functools.lru_cache(maxsize=1)
+def build() -> BuildInfo:
+    """Compile csrc/*.cu into one shared library (once per process)."""
+    so = BUILD / LIB_NAME
+    log_path = BUILD / (LIB_NAME + ".log")
+    srcs = [CSRC / s for s in SOURCES]
+    with _lock:
+        if so.exists() and log_path.exists() and all(
+                so.stat().st_mtime >= s.stat().st_mtime for s in srcs):
+            return BuildInfo(so, 0.0, log_path.read_text())
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD / f"{LIB_NAME}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        secs = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, so)
+        log_path.write_text(log)
+    return BuildInfo(so, secs, log)
+
+
+@functools.lru_cache(maxsize=1)
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library with argtypes/restype declared."""
+    handle = ctypes.CDLL(str(build().path))
+    for name, args in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    handle.reseek_error_string.argtypes = [ctypes.c_int]
+    handle.reseek_error_string.restype = ctypes.c_char_p
+    return handle
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if err != 0:
+        msg = lib().reseek_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,14 @@
+"""Device ops of the port.  Each kernel wrapper counts its launches in a
+plain ``launches`` attribute; ``kernel_wrappers`` lists them by kernel."""
+
+from __future__ import annotations
+
+
+def kernel_wrappers():
+    """{kernel name: wrapper} for every CUDA kernel of the self-search."""
+    from reseek_tpu_torch.ops.postalign import (lddt_batch,
+                                                walk_traceback_batch)
+    from reseek_tpu_torch.ops.sw_sweep import mu_sw_scores
+    from reseek_tpu_torch.ops.sw_wavefront import sw_traceback
+    return {"mu_sweep": mu_sw_scores, "sw_traceback": sw_traceback,
+            "walk_traceback": walk_traceback_batch, "lddt": lddt_batch}

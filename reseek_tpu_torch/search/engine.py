@@ -1,0 +1,491 @@
+"""All-vs-all self-search on the device, counterpart of
+``reseek_tpu.search.engine.DeviceSelfSearch`` (the sorted-DB rectangular
+pipeline).
+
+  - chains are sorted by length once, so each length bucket is a
+    contiguous index range and stage-1 pair blocks are generated on the
+    device from range scalars;
+  - stage 1 (Mu filter, src/dssaligner.cpp:619-630 with the parasail
+    saturation of src/parasail_mu.cpp:135-139): fwd and rev Mu SW in one
+    kernel launch per block (ops/sw_sweep.py), then Omega gating; the pass
+    mask comes back as bools;
+  - stage 3 on the survivors: profile substitution tensor (gather-sum),
+    SW with traceback (ops/sw_wavefront.py), the backward walk, the
+    aligned-column coordinate gather and LDDT (ops/postalign.py); the
+    per-pair results and uint8 path codes come back;
+  - TS/P/E on the host in reference float32 order, with the display-band
+    checks that send boundary pairs to the exact host kernels.
+
+Pairs with a chain at or above the MKF length routing threshold are not
+handled here; the driver aligns them on the host path and merges.  Bucket
+edges are the JAX engine's 128-multiples: they change padding, never
+results.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from reseek_tpu.align.pipeline import (AlignResult, EncodedChain,
+                                       _path_positions)
+from reseek_tpu.constants import DSSParams, StatSig
+from reseek_tpu.ops.lddt import lddt_mu_fast
+from reseek_tpu.search.engine import (MU_SAT_LIMIT, MU_SAT_REV_SCORE,
+                                      MU_SAT_SCORE, PAD_BYTE, STAGE1_CELLS,
+                                      STAGE3_CELLS, _PATH_CHARS,
+                                      _batch_shape, _edges_for,
+                                      _exact_fwd_score, _rect_edges,
+                                      _vector_stats)
+from reseek_tpu_torch.device import DeviceLike, resolve
+from reseek_tpu_torch.ops.postalign import (PD, PI, PM, lddt_batch,
+                                            walk_traceback_batch)
+from reseek_tpu_torch.ops.smx import (flat_layout, mu_table, profile_codes,
+                                      profile_smx)
+from reseek_tpu_torch.ops.sw_sweep import mu_sw_scores
+from reseek_tpu_torch.ops.sw_wavefront import sw_traceback
+
+
+def _f32(x: float) -> float:
+    """x rounded to float32, as a Python float (compares identically
+    against a float32 tensor in float32 or float64)."""
+    return float(np.float32(x))
+
+
+def aligned_coords(path_rev: torch.Tensor, bi: torch.Tensor,
+                   bj: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor,
+                   coords: torch.Tensor, m_cap: int):
+    """Coordinates of the aligned (M) columns in forward order.
+
+    path_rev [B, S] uint8 codes backward from the alignment end (bi, bj);
+    ia, ib [B] rows of ``coords`` [N, L, 3].  Returns (cq, ct [B, m_cap, 3],
+    valid [B, m_cap] bool, n_m [B] int32)."""
+    b = path_rev.shape[0]
+    is_m = path_rev == PM
+    adv_a = (is_m | (path_rev == PD)).long()
+    adv_b = (is_m | (path_rev == PI)).long()
+    pos_a = bi.long()[:, None] - (adv_a.cumsum(1) - adv_a)
+    pos_b = bj.long()[:, None] - (adv_b.cumsum(1) - adv_b)
+    m_cum = is_m.long().cumsum(1)
+    n_m = m_cum[:, -1]
+    # forward rank of each M column; other codes go to the dropped slot
+    rank = torch.where(is_m, n_m[:, None] - m_cum, m_cap)
+    zeros = torch.zeros((b, m_cap + 1), dtype=torch.long,
+                        device=path_rev.device)
+    cq_pos = zeros.scatter(1, rank, pos_a)[:, :m_cap]
+    ct_pos = zeros.scatter(1, rank, pos_b)[:, :m_cap]
+    cq = coords[ia[:, None], cq_pos]
+    ct = coords[ib[:, None], ct_pos]
+    valid = (torch.arange(m_cap, device=path_rev.device)[None, :]
+             < n_m[:, None])
+    return cq, ct, valid, n_m.to(torch.int32)
+
+
+class DeviceSelfSearch:
+    """All-vs-all self search of the pairs below the MKF routing threshold
+    (src/runself.cpp + src/dssaligner.cpp), on ``device``."""
+
+    def __init__(self, ecs: List[EncodedChain], params: DSSParams,
+                 device: DeviceLike = "cuda"):
+        lens = np.array([len(ec) for ec in ecs], np.int64)
+        order = np.argsort(lens, kind="stable")
+        edges = _edges_for(params, int(lens.max()) if len(lens) else 1)
+        offsets, _d, w = flat_layout(params.features, params.weights)
+        n, nf, L = len(ecs), len(params.features), edges[-1]
+        prof = np.full((n, nf, L), PAD_BYTE, np.uint8)
+        mu = np.full((n, L), 36, np.uint8)
+        mu_rev = np.full((n, L), 36, np.uint8)
+        coords = np.zeros((n, L, 3), np.float32)
+        for s, oi in enumerate(order):
+            ec = ecs[oi]
+            ln = min(len(ec), L)
+            prof[s, :, :ln] = ec.profile[:, :ln]
+            mu[s, :ln] = ec.mu_letters[:ln]
+            mu_rev[s, :ln] = ec.mu_letters[:ln][::-1]
+            coords[s, :ln] = ec.chain.coords[:ln]
+        self._setup(ecs, params, device, order, edges, prof, mu, mu_rev,
+                    coords, w, offsets, mu_table())
+
+    @classmethod
+    def from_arrays(cls, ecs: List[EncodedChain], params: DSSParams,
+                    device: DeviceLike = "cuda", *, order, edges, prof, mu,
+                    mu_rev, coords, w, offsets,
+                    mumx) -> "DeviceSelfSearch":
+        """An engine over given device state (numpy arrays, e.g. fetched
+        from reseek_tpu's DeviceSelfSearch): sorted order, bucket edges,
+        sorted uint8 profiles [N, F, L], Mu letters and reversed letters
+        [N, L], coordinates [N, L, 3], flat table W, feature offsets and
+        the padded Mu table."""
+        self = cls.__new__(cls)
+        self._setup(ecs, params, device, order, edges, prof, mu, mu_rev,
+                    coords, w, offsets, mumx)
+        return self
+
+    def _setup(self, ecs, params, device, order, edges, prof, mu, mu_rev,
+               coords, w, offsets, mumx) -> None:
+        dev = resolve(device)
+        self.device = dev
+        self.ecs = ecs
+        self.params = params
+        self.lens = np.array([len(ec) for ec in ecs], np.int64)
+        self.order = np.asarray(order, np.int64)
+        self.sorted_lens = self.lens[self.order]
+        self.edges = tuple(int(e) for e in edges)
+        # bucket index per sorted position; contiguous ranges per bucket
+        bucket_of = np.searchsorted(np.asarray(self.edges), self.sorted_lens)
+        self.range_of = {}
+        for bi in range(len(self.edges)):
+            sel = np.flatnonzero(bucket_of == bi)
+            if len(sel):
+                self.range_of[bi] = (int(sel[0]), int(sel[-1]) + 1)
+        # chains with length < mkfl take the device path: a prefix of the
+        # sorted index space (longer ones route to the host MKF path)
+        self.dev_end = int(np.searchsorted(self.sorted_lens, params.mkfl))
+        self.sorted_of = np.empty(len(ecs), np.int64)
+        self.sorted_of[self.order] = np.arange(len(ecs))
+
+        def put(x, dtype):     # a copy: callers may pass read-only arrays
+            return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+        self.prof = put(prof, torch.uint8)
+        self.mu = put(mu, torch.uint8)
+        self.mu_rev = put(mu_rev, torch.uint8)
+        self.coords = put(coords, torch.float32)
+        self.w = put(w, torch.float32)
+        self.offsets = put(offsets, torch.int64)
+        self.mumx = put(mumx, torch.float32)
+        self.pad_code = int(self.w.shape[0]) - 1
+        # host-clock walls of the last stage1_survivors / align_survivors,
+        # each read after the device has finished (see _clock)
+        self.seconds: Dict[str, float] = {}
+
+    def _clock(self) -> float:
+        """Host clock after the device's queued work has finished."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def _device_ranges(self):
+        """(bucket_index, s0, s1) for each bucket's device-eligible
+        (length < mkfl) sorted-index range, clamped at dev_end."""
+        out = []
+        for bi in range(len(self.edges)):
+            if bi not in self.range_of:
+                continue
+            s0, s1 = self.range_of[bi]
+            s1 = min(s1, self.dev_end)
+            if s0 < s1:
+                out.append((bi, s0, s1))
+        return out
+
+    # -- stage 1: Mu filter over all device pairs ------------------------
+    def stage1_block_plan(self) -> Dict[Tuple[int, int, int, int], list]:
+        """Stage-1 launch plan {(lea, leb, ca, cb): [(ba, bb, a1, b1), ...]}:
+        every (ca x cb) pair block over the device-eligible bucket ranges,
+        blocks wholly below the diagonal skipped.  The DP shape is
+        rectangular (A edge x B edge) when the buckets differ >= 2x, else
+        the larger edge's square; block dims are powers of two clamped to
+        the range sizes and the STAGE1_CELLS budget."""
+        groups: Dict[Tuple[int, int, int, int], list] = {}
+        dev = self._device_ranges()
+        for ai, a0, a1 in dev:
+            for bi_, b0, b1 in dev:
+                if bi_ < ai:
+                    continue
+                lea_a, leb_a = _rect_edges(np.array([self.edges[ai]]),
+                                           np.array([self.edges[bi_]]))
+                lea, leb = int(lea_a[0]), int(leb_a[0])
+                budget = max(256, STAGE1_CELLS // (lea * leb))
+                ca = 8
+                while ca < min(64, a1 - a0, budget):
+                    ca *= 2
+                cb = 8
+                while cb < min(512, b1 - b0, max(8, budget // ca)):
+                    cb *= 2
+                for ba in range(a0, a1, ca):
+                    for bb in range(b0, b1, cb):
+                        if bb + cb > ba:  # skip below-diagonal blocks
+                            groups.setdefault((lea, leb, ca, cb), []).append(
+                                (ba, bb, a1, b1))
+        return groups
+
+    def stage1_letters(self, lea: int, leb: int, ca: int, cb: int, ba: int,
+                       bb: int):
+        """Kernel inputs of one pair block, generated on the device: A rows
+        ba..ba+ca, B rows bb..bb+cb (sorted indices, clamped).  Returns
+        (a [2*ca*cb, lea], b [2*ca*cb, leb]) uint8 letters, fwd pairs then
+        rev pairs, and the unclamped row indices (ia [ca], ib [cb])."""
+        dev = self.device
+        n = self.mu.shape[0]
+        ia = ba + torch.arange(ca, device=dev)
+        ib = bb + torch.arange(cb, device=dev)
+        idx_a = ia.clamp(0, n - 1).repeat_interleave(cb)
+        idx_b = ib.clamp(0, n - 1).repeat(ca)
+        b = self.mu[idx_b, :leb]
+        return (torch.cat([self.mu[idx_a, :lea], self.mu_rev[idx_a, :lea]]),
+                torch.cat([b, b]), ia, ib)
+
+    def _stage1_block(self, lea: int, leb: int, ca: int, cb: int, ba: int,
+                      bb: int, a1: int, b1: int) -> torch.Tensor:
+        """Pass mask [ca*cb] bool of one pair block; valid when in range
+        and ia <= ib (unordered pair once)."""
+        p = self.params
+        a, b, ia, ib = self.stage1_letters(lea, leb, ca, cb, ba, bb)
+        # fwd and rev in one kernel launch ([2B] batch)
+        both = mu_sw_scores(a, b, self.mumx, -float(p.para_mu_gap_open),
+                            -float(p.para_mu_gap_ext))
+        fwd, rev = both[: ca * cb], both[ca * cb:]
+        # parasail 8-bit saturation (align/pipeline.py MU_SAT_* notes)
+        fwd = torch.where(fwd > MU_SAT_LIMIT, MU_SAT_SCORE, fwd)
+        rev = torch.where(rev > MU_SAT_LIMIT, MU_SAT_REV_SCORE, rev)
+        ok = (fwd >= _f32(p.omega_fwd)) & (fwd - rev >= _f32(p.omega))
+        valid = ((ia < a1).repeat_interleave(cb) & (ib < b1).repeat(ca)
+                 & (ia.repeat_interleave(cb) <= ib.repeat(ca)))
+        return ok & valid
+
+    def stage1_survivors(self) -> np.ndarray:
+        """(i, j) ORIGINAL-index pairs (i <= j) passing the Mu filter, for
+        all pairs with both chains below mkfl.  With omega == 0 the filter
+        is off and all such pairs survive (src/dssaligner.cpp:819-828)."""
+        t0 = self._clock()
+        dev = self._device_ranges()
+        pair_chunks = []
+        if self.params.omega <= 0:
+            for ai, a0, a1 in dev:
+                for bi_, b0, b1 in dev:
+                    if bi_ < ai:
+                        continue
+                    ia, ib = np.meshgrid(np.arange(a0, a1),
+                                         np.arange(b0, b1), indexing="ij")
+                    keep = ib >= ia
+                    pair_chunks.append(np.stack([ia[keep], ib[keep]], axis=1))
+        else:
+            blocks, masks = [], []
+            for (lea, leb, ca, cb), starts in self.stage1_block_plan().items():
+                for ba, bb, a1, b1 in starts:
+                    masks.append(self._stage1_block(lea, leb, ca, cb, ba, bb,
+                                                    a1, b1))
+                    blocks.append((ba, bb, ca, cb))
+            flat = (torch.cat(masks).cpu().numpy() if masks
+                    else np.zeros(0, bool))
+            pos = 0
+            for ba, bb, ca, cb in blocks:
+                ia_r, ib_r = np.nonzero(flat[pos: pos + ca * cb]
+                                        .reshape(ca, cb))
+                pos += ca * cb
+                if len(ia_r):
+                    pair_chunks.append(np.stack([ba + ia_r, bb + ib_r],
+                                                axis=1))
+        self.seconds["stage1"] = self._clock() - t0
+        if not pair_chunks:
+            return np.zeros((0, 2), np.int64)
+        sp = np.concatenate(pair_chunks)
+        # sorted -> original, oriented (min, max) by ORIGINAL index (the
+        # reference aligns query=i, target=j with i <= j, src/runself.cpp)
+        oi = self.order[sp[:, 0]]
+        oj = self.order[sp[:, 1]]
+        out = np.stack([np.minimum(oi, oj), np.maximum(oi, oj)], axis=1)
+        return out[np.lexsort((out[:, 1], out[:, 0]))]
+
+    # -- stage 3: align + LDDT on survivors ------------------------------
+    def stage3_plan(self, pairs_orig: np.ndarray):
+        """Stage-3 chunks of (i, j) original-index pairs: [(lea, leb,
+        chunk pairs [n, 2], ia [n], ib [n] sorted-index tensors)].  The DP
+        shape is rectangular (A edge x B edge) when the edges differ >= 2x,
+        else the larger edge's square; chunks hold at most STAGE3_CELLS
+        DP cells."""
+        edges = np.asarray(self.edges)
+
+        def eof(lv):
+            return edges[np.minimum(np.searchsorted(edges, lv),
+                                    len(edges) - 1)]
+
+        ra, rb = _rect_edges(eof(self.lens[pairs_orig[:, 0]]),
+                             eof(self.lens[pairs_orig[:, 1]]))
+        keys = ra.astype(np.int64) * (1 << 20) + rb
+        plan = []
+        for key in sorted({int(x) for x in keys}):
+            lea, leb = key >> 20, key & ((1 << 20) - 1)
+            rows = np.flatnonzero(keys == key)
+            bs = _batch_shape(len(rows), lea, STAGE3_CELLS, le_b=leb)
+            for kk in range(0, len(rows), bs):
+                chunk = pairs_orig[rows[kk: kk + bs]]
+                plan.append((lea, leb, chunk,
+                             torch.as_tensor(self.sorted_of[chunk[:, 0]],
+                                             device=self.device),
+                             torch.as_tensor(self.sorted_of[chunk[:, 1]],
+                                             device=self.device)))
+        return plan
+
+    def stage3_smx(self, lea: int, leb: int, ia: torch.Tensor,
+                   ib: torch.Tensor) -> torch.Tensor:
+        """Profile substitution tensor [n, lea, leb] of sorted-index pairs
+        (ia, ib)."""
+        ca = profile_codes(self.prof[ia, :, :lea], self.offsets,
+                           self.pad_code)
+        cb = profile_codes(self.prof[ib, :, :leb], self.offsets,
+                           self.pad_code)
+        return profile_smx(ca, cb, self.w)
+
+    def _stage3_chunk(self, lea: int, leb: int, ia: torch.Tensor,
+                      ib: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Full-profile SW with traceback, backward walk, aligned-column
+        coordinate gather and LDDT for sorted-index pairs (ia, ib) with
+        DP shape [lea, leb]."""
+        p = self.params
+        s = self.stage3_smx(lea, leb, ia, ib)
+        best, bi, bj, tb = sw_traceback(s, float(p.gap_open),
+                                        float(p.gap_ext))
+        del s
+        lo_a, lo_b, plen, path_rev = walk_traceback_batch(tb, best, bi, bj)
+        del tb
+        cq, ct, valid, n_m = aligned_coords(path_rev, bi, bj, ia, ib,
+                                            self.coords, min(lea, leb))
+        lddt, risky = lddt_batch(cq, ct, valid, n_m, with_risky=True)
+        return {"best": best, "lo_a": lo_a, "lo_b": lo_b, "hi_a": bi,
+                "hi_b": bj, "plen": plen, "lddt": lddt, "n_m": n_m,
+                "risky": risky, "path_rev": path_rev}
+
+    def align_survivors(self, pairs_orig: np.ndarray,
+                        evalue_gate: Optional[float] = None,
+                        fwd_displayed: bool = True
+                        ) -> Dict[Tuple[int, int], AlignResult]:
+        """Full alignment of (i, j) original-index pairs.  Returns
+        {(i, j): AlignResult} for the alignments with a path.
+
+        evalue_gate: the caller's emit gate; pairs whose best-case E-value
+        exceeds it skip the host finish.  fwd_displayed: whether the raw
+        forward score is displayed (dpscore/raw columns), which adds its
+        display boundaries to the exact-recompute checks."""
+        results: Dict[Tuple[int, int], AlignResult] = {}
+        if len(pairs_orig) == 0:
+            return results
+        t0 = self._clock()
+        # launch every chunk, then fetch: the device runs ahead of the host
+        jobs = [(chunk, self._stage3_chunk(lea, leb, ia, ib))
+                for lea, leb, chunk, ia, ib in self.stage3_plan(pairs_orig)]
+        fetched = [(chunk, {k: v.cpu().numpy() for k, v in out.items()})
+                   for chunk, out in jobs]
+        t1 = self._clock()
+        for chunk, host in fetched:
+            self._finish(chunk, host, results, evalue_gate, fwd_displayed)
+        self.seconds["stage3"] = t1 - t0
+        self.seconds["finish"] = time.perf_counter() - t1
+        return results
+
+    def _finish(self, chunk: np.ndarray, r: Dict[str, np.ndarray],
+                results: Dict[Tuple[int, int], AlignResult],
+                evalue_gate: Optional[float], fwd_displayed: bool) -> None:
+        """TS/P/E of one chunk in reference float32 order.  Device values
+        carry tiny non-boundary rounding (LDDT: d^2 without FMA; FWD: none,
+        the gather-sum smx is exact, but the band is kept as in the JAX
+        engine); any pair whose displayed or gated value could change
+        within those bands is recomputed with the exact host kernels."""
+        p = self.params
+        best, lddt = r["best"], r["lddt"]
+        lo_a, lo_b = r["lo_a"], r["lo_b"]
+        hi_a, hi_b = r["hi_a"], r["hi_b"]
+        plen, n_m, path_rev = r["plen"], r["n_m"], r["path_rev"]
+        n = len(chunk)
+        sa = np.array([self.ecs[i].self_rev_score for i in chunk[:, 0]],
+                      np.float32)
+        sb = np.array([self.ecs[j].self_rev_score for j in chunk[:, 1]],
+                      np.float32)
+        la_v = self.lens[chunk[:, 0]]
+        lb_v = self.lens[chunk[:, 1]]
+        # two recompute flags:
+        #   lddt_rec: device LDDT near a threshold/display boundary
+        #             -> exact native LDDT
+        #   fwd_rec:  FWD near a display or MinFwdScore gate boundary
+        #             -> exact native SW
+        lddt_rec = r["risky"].astype(bool).copy()
+        fwd_rec = np.zeros(n, bool)
+        band = np.float32(1e-6)
+        fband = np.float32(2e-5) * np.maximum(np.abs(best), np.float32(1.0))
+        tsl_lo, pvl_lo, evl_lo = _vector_stats(
+            best, np.maximum(lddt - band, 0), sa, sb, la_v, lb_v)
+        tsl_hi, pvl_hi, evl_hi = _vector_stats(best, lddt + band, sa, sb,
+                                               la_v, lb_v)
+        tsf_lo, pvf_lo, evf_lo = _vector_stats(best - fband, lddt, sa, sb,
+                                               la_v, lb_v)
+        tsf_hi, pvf_hi, evf_hi = _vector_stats(best + fband, lddt, sa, sb,
+                                               la_v, lb_v)
+        # MinFwdScore gate boundary (src/dssaligner.cpp:852-860)
+        fwd_rec |= np.abs(best - np.float32(p.min_fwd_score)) <= fband
+        # E-gate fast reject: ts increases in both fwd and lddt, so stats
+        # at (best+fband, lddt+band) bound the smallest E-value any in-band
+        # exact value could give; such pairs can never produce a row
+        skip = np.zeros(n, bool)
+        if evalue_gate is not None:
+            _, _, ev_hh = _vector_stats(best + fband, lddt + band, sa, sb,
+                                        la_v, lb_v)
+            skip = ev_hh > evalue_gate
+        for kk in range(n):
+            if skip[kk]:
+                continue
+            if ("%.3g" % pvl_lo[kk] != "%.3g" % pvl_hi[kk]
+                    or "%.3g" % evl_lo[kk] != "%.3g" % evl_hi[kk]
+                    or "%.3g" % tsl_lo[kk] != "%.3g" % tsl_hi[kk]
+                    or "%.4g" % np.float32(lddt[kk] - band)
+                    != "%.4g" % np.float32(lddt[kk] + band)):
+                lddt_rec[kk] = True
+            if ("%.3g" % pvf_lo[kk] != "%.3g" % pvf_hi[kk]
+                    or "%.3g" % evf_lo[kk] != "%.3g" % evf_hi[kk]
+                    or "%.3g" % tsf_lo[kk] != "%.3g" % tsf_hi[kk]):
+                fwd_rec[kk] = True
+            elif fwd_displayed and (
+                    # dpscore %.4g / raw %.3g display boundaries
+                    # (align/output.py:140-142)
+                    "%.4g" % np.float32(best[kk] - fband[kk])
+                    != "%.4g" % np.float32(best[kk] + fband[kk])
+                    or "%.3g" % np.float32(best[kk] - fband[kk])
+                    != "%.3g" % np.float32(best[kk] + fband[kk])):
+                fwd_rec[kk] = True
+        ts, pv, ev = _vector_stats(best, lddt, sa, sb, la_v, lb_v)
+        for kk in range(n):
+            if best[kk] <= 0 or skip[kk]:
+                # no alignment, or best-case E above the emit gate
+                continue
+            i, j = int(chunk[kk, 0]), int(chunk[kk, 1])
+            codes = path_rev[kk, :plen[kk]][::-1]
+            path = _PATH_CHARS[codes].tobytes().decode()
+            res = AlignResult(
+                query=self.ecs[i].label, target=self.ecs[j].label,
+                fwd_score=float(best[kk]), lo_a=int(lo_a[kk]),
+                lo_b=int(lo_b[kk]), path=path)
+            gate_fwd = np.float32(best[kk])
+            if fwd_rec[kk]:
+                gate_fwd = np.float32(_exact_fwd_score(
+                    p, self.ecs[i].profile, self.ecs[j].profile))
+                res.fwd_score = float(gate_fwd)
+            if gate_fwd >= p.min_fwd_score:
+                res.hi_a = int(hi_a[kk])
+                res.hi_b = int(hi_b[kk])
+                res.ids = int(n_m[kk])
+                res.gaps = int(plen[kk]) - int(n_m[kk])
+                if lddt_rec[kk] or fwd_rec[kk]:
+                    lddt_val = np.float32(lddt[kk])
+                    if lddt_rec[kk]:
+                        pos_q, pos_t = _path_positions(res.lo_a, res.lo_b,
+                                                       path)
+                        lddt_val = np.float32(lddt_mu_fast(
+                            self.ecs[i].chain.coords,
+                            self.ecs[j].chain.coords, pos_q, pos_t))
+                    tse, pve, eve = _vector_stats(
+                        np.float32([gate_fwd]), np.float32([lddt_val]),
+                        sa[kk:kk + 1], sb[kk:kk + 1],
+                        la_v[kk:kk + 1], lb_v[kk:kk + 1])
+                    res.lddt = float(lddt_val)
+                    res.ts = float(tse[0])
+                    res.pvalue = float(pve[0])
+                    res.evalue = float(eve[0])
+                else:
+                    res.lddt = float(lddt[kk])
+                    res.ts = float(ts[kk])
+                    res.pvalue = float(pv[kk])
+                    res.evalue = float(ev[kk])
+                res.qual = StatSig.qual(res.ts)
+            results[(i, j)] = res
