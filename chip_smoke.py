@@ -8,20 +8,37 @@ Run from the repository root on a machine with a CUDA card:
 Phases, in order; any failure exits non-zero and prints no result:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
      fails without a CUDA device;
-  1. builds the CUDA kernels from reseek_tpu_torch/csrc with nvcc
-     (build seconds, ptxas registers / shared memory / spills);
+  1. builds the CUDA kernels from reseek_tpu_torch/csrc with nvcc, one
+     process per source in parallel (build seconds, ptxas registers /
+     shared memory / spills);
   2. holds each kernel against its plain PyTorch version on the card, at
-     the shapes of the q100 self-search (stage-1 block plan, stage-3
-     chunk shapes), and times both (CUDA events, warm); then again on
-     seeded random ragged, wide and tie-prone inputs;
+     the shapes of the q100 searches (stage-1 block plan, stage-3 chunk
+     shapes, the self-reversal batches and the survivors' stage-2
+     batches), and times both (CUDA events, warm); then again on seeded
+     random ragged, wide and tie-prone inputs;
   3. the q100 sensitive all-vs-all through reseek_tpu_torch's
      self_search(engine="device", device="cuda"): the TSV must equal
-     reseek_tpu's host engine byte for byte, and every kernel must have
-     been launched by that run; cold wall, warm median of 3, stage walls;
+     reseek_tpu's host engine byte for byte; cold wall, warm median of 3,
+     stage walls;
   4. the 1,024-chain replica (q100 chains plus 0.25 A Gaussian coordinate
      noise, seed 17, labels <label>/r<k>) through the same entry; every
-     chain below the MKF length threshold must report its self hit.
-The last two lines are a JSON object of per-kernel results and
+     chain below the MKF length threshold must report its self hit;
+  5. device self-reversal scores (the exact score-only wavefront) on q100
+     and on the replica: equal to the host self_rev_score for every chain
+     below the MKF length threshold;
+  6. query-vs-DB, sensitive, the 100 q100 queries against the replica in
+     DB chunks of 512: the rows of five queries must equal reseek_tpu's
+     host query_search of those queries; 10 queries x q100 byte-identical
+     to the host, also with the E-bound stage-2 prepass (the float row
+     sweep) forced on;
+  7. -fast (prefilter idxq, device stage 2): the 100 q100 queries against
+     a 10,240-chain replica written as .cal; the five queries' rows must
+     equal reseek_tpu's host fast_search of those queries; 10 queries x
+     q100 byte-identical to the host.
+Each kernel must have been launched by the run of the phase that KERNELS
+names for it (counts set to 0 just before that run, read just after);
+the query and -fast runs must launch every stage-1/3 kernel too.  The
+last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -33,7 +50,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -42,21 +61,34 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 Q100 = os.path.join(ROOT, "tests", "golden", "q100.cal")
 COLUMNS = "query+target+qlo+qhi+tlo+thi+evalue+cigar"
 MODE = "sensitive"
+DEVICE = "cuda"
 REPLICA_CHAINS = 1024
+FAST_DB_CHAINS = 10240
 REPLICA_SEED = 17
 REPLICA_NOISE = 0.25
 LDDT_TOL = 1e-6
-# kernel -> (CUDA source, the TPU kernel or JAX scan it replaces)
+SWEEP_TOL = 1e-3          # float row sweep vs the exact wavefront score
+QUERY_CHUNK = 512
+FIVE = [18, 21, 22, 26, 40]
+TEN = list(range(10))
+# kernel -> (CUDA source, the TPU kernel or JAX scan it replaces, the run
+# that must launch it)
 KERNELS = {
     "mu_sweep": ("reseek_tpu_torch/csrc/mu_sweep.cu",
-                 "reseek_tpu/ops/sw_sweep.py:206"),
+                 "reseek_tpu/ops/sw_sweep.py:327", "q100"),
+    "sw_score_sweep": ("reseek_tpu_torch/csrc/mu_sweep.cu",
+                       "reseek_tpu/ops/sw_sweep.py:206", "query_prepass"),
     "sw_traceback": ("reseek_tpu_torch/csrc/sw_traceback.cu",
-                     "reseek_tpu/ops/sw_pallas.py:252"),
+                     "reseek_tpu/ops/sw_pallas.py:252", "q100"),
+    "sw_score": ("reseek_tpu_torch/csrc/sw_traceback.cu",
+                 "reseek_tpu/ops/sw_pallas.py:166", "self_rev"),
     "walk_traceback": ("reseek_tpu_torch/csrc/postalign.cu",
-                       "reseek_tpu/ops/postalign_jax.py:20"),
+                       "reseek_tpu/ops/postalign_jax.py:20", "q100"),
     "lddt": ("reseek_tpu_torch/csrc/postalign.cu",
-             "reseek_tpu/ops/postalign_jax.py:79"),
+             "reseek_tpu/ops/postalign_jax.py:79", "q100"),
 }
+# the kernels that every pair-list search (query-vs-DB, -fast) launches
+SEARCH_KERNELS = ("mu_sweep", "sw_traceback", "walk_traceback", "lddt")
 
 
 def fail(msg: str) -> None:
@@ -89,6 +121,28 @@ def time_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+class Launches:
+    """Kernel launch counts of one run: ``with Launches() as n: run()``
+    sets every wrapper's count to 0 on entry and leaves {kernel: count}
+    in ``n.counts`` on exit."""
+
+    def __enter__(self):
+        from reseek_tpu_torch.ops import kernel_wrappers
+        self.wrappers = kernel_wrappers()
+        for w in self.wrappers.values():
+            w.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.counts = {k: w.launches for k, w in self.wrappers.items()}
+        return False
+
+    def require(self, names, what: str) -> None:
+        for k in names:
+            if self.counts[k] <= 0:
+                fail(f"kernel {k} was not launched by {what}")
+
+
 def _band(dp: int, la: int, lb: int, device) -> torch.Tensor:
     """[Dp, 1, LA] mask of the skewed traceback's valid cells, 0 <= d-i <
     LB (the kernel leaves the rest unwritten)."""
@@ -115,8 +169,11 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
     from reseek_tpu_torch.ops.postalign import (lddt_batch, lddt_batch_ref,
                                                 walk_traceback_batch,
                                                 walk_traceback_batch_ref)
-    from reseek_tpu_torch.ops.sw_sweep import mu_sw_scores, mu_sw_scores_ref
-    from reseek_tpu_torch.ops.sw_wavefront import (sw_traceback,
+    from reseek_tpu_torch.ops.sw_sweep import (mu_sw_scores, mu_sw_scores_ref,
+                                               sw_score_sweep,
+                                               sw_score_sweep_ref)
+    from reseek_tpu_torch.ops.sw_wavefront import (sw_score, sw_score_ref,
+                                                   sw_traceback,
                                                    sw_traceback_ref)
     from reseek_tpu_torch.search.engine import aligned_coords
     p = pipe.params
@@ -189,6 +246,31 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
                lambda: lddt_batch_ref(cq, ct, valid, n_m), 5)
         print(f"[2] stage-3 kernels B={nb} LA={lea} LB={leb}: equal "
               f"(lddt err {float(err):.3g}, risky {int(risky.sum())})")
+
+    # K5 exact score at the self-reversal batches (each chain below mkfl
+    # against its reversed profile); K6 float sweep at the survivors'
+    # stage-2 batches, also held to the exact score within SWEEP_TOL
+    own = pipe.order[:pipe.dev_end]
+    for name, pairs, prof_b, fn, ref, reps in (
+            ("sw_score", np.stack([own, own], 1), pipe.prof_rev, sw_score,
+             sw_score_ref, 3),
+            ("sw_score_sweep", survivors, pipe.prof, sw_score_sweep,
+             sw_score_sweep_ref, 5)):
+        for le, _rows, ia, ib in pipe.stage2_plan(pairs):
+            s = pipe.stage3_smx(le, le, ia, ib, prof_b)
+            got, want = fn(s, go, ge), ref(s, go, ge)
+            if not torch.equal(got, want):
+                fail(f"{name} != plain at {tuple(s.shape)}")
+            off = float((got - sw_score(s, go, ge)).abs().max())
+            if off > SWEEP_TOL:
+                fail(f"{name} differs from sw_score by {off} at "
+                     f"{tuple(s.shape)}")
+            record(name, (got - want).abs().max(), s.numel(),
+                   tuple(s.shape), lambda: fn(s, go, ge),
+                   lambda: ref(s, go, ge), reps)
+            print(f"[2] {name} B={s.shape[0]} L={le}: equal (vs sw_score "
+                  f"{off:.3g})")
+            del s
     for name, r in res.items():
         if r["ms"] is None:
             fail(f"{name}: no main-path shape to compare at")
@@ -205,8 +287,11 @@ def phase_tie_prone(mumx) -> None:
     from reseek_tpu_torch.ops.postalign import (lddt_batch, lddt_batch_ref,
                                                 walk_traceback_batch,
                                                 walk_traceback_batch_ref)
-    from reseek_tpu_torch.ops.sw_sweep import mu_sw_scores, mu_sw_scores_ref
-    from reseek_tpu_torch.ops.sw_wavefront import (sw_traceback,
+    from reseek_tpu_torch.ops.sw_sweep import (mu_sw_scores, mu_sw_scores_ref,
+                                               sw_score_sweep,
+                                               sw_score_sweep_ref)
+    from reseek_tpu_torch.ops.sw_wavefront import (sw_score, sw_score_ref,
+                                                   sw_traceback,
                                                    sw_traceback_ref)
     rng = np.random.default_rng(0)
     dev = mumx.device
@@ -241,6 +326,24 @@ def phase_tie_prone(mumx) -> None:
                     walk_traceback_batch(*got[3:], *got[:3]),
                     walk_traceback_batch_ref(*got[3:], *got[:3])))):
             fail(f"sw_traceback/walk != plain on tie-prone {(la, lb)}")
+    # exact score and float sweep: tie-prone float scores (a few distinct
+    # float32 values) and real float gap penalties, ragged, up to LA 2,048
+    vals = np.float32([-1.3, -0.7, -0.35, 0.2, 0.45, 0.45, 1.1, 2.05])
+    for la, lb in ((40, 24), (300, 600), (600, 130), (2048, 96),
+                   (100, 2048), (50, 4100)):
+        s = vals[rng.integers(0, len(vals), (12, la, lb))]
+        s[ragged(12, la, lb)] = -9e9
+        s[1] = -1.0
+        s = torch.tensor(s, device=dev)
+        for o, e in ((-1.5, -0.25), (-0.685533, -0.051881)):
+            exact = sw_score(s, o, e)
+            sweep = sw_score_sweep(s, o, e)
+            if not (torch.equal(exact, sw_traceback(s, o, e)[0])
+                    and (la * lb > 2e5
+                         or torch.equal(exact, sw_score_ref(s, o, e)))
+                    and torch.equal(sweep, sw_score_sweep_ref(s, o, e))):
+                fail(f"sw_score/sw_score_sweep != plain on tie-prone "
+                     f"{(la, lb, o, e)}")
     for m in (7, 700, 2048):
         walk = np.cumsum(rng.normal(0, 2.2, (20, m, 3)), axis=1)
         cq = np.round(walk, 1).astype(np.float32)
@@ -257,43 +360,41 @@ def phase_tie_prone(mumx) -> None:
           "version")
 
 
-def run_search(chains, engine: str):
+def options(columns: str = COLUMNS, mode: str = MODE):
     from reseek_tpu.align.output import parse_columns
-    from reseek_tpu.constants import DSSParams
     from reseek_tpu.search.driver import SearchOptions
+    return SearchOptions(columns=parse_columns(columns), mode=mode)
+
+
+def run_search(chains, engine: str):
+    from reseek_tpu.constants import DSSParams
     out = io.StringIO()
-    options = SearchOptions(columns=parse_columns(COLUMNS), mode=MODE)
     params = DSSParams.create(MODE)
     t0 = time.perf_counter()
     if engine == "host":
         from reseek_tpu.search.driver import self_search
-        drv = self_search(chains, params, options, out, engine="host")
+        drv = self_search(chains, params, options(), out, engine="host")
     else:
         from reseek_tpu_torch.search.driver import self_search
-        drv = self_search(chains, params, options, out, engine="device",
-                          device="cuda")
+        drv = self_search(chains, params, options(), out, engine="device",
+                          device=DEVICE)
         torch.cuda.synchronize()
     return out.getvalue(), time.perf_counter() - t0, drv
 
 
 def phase_q100(chains) -> dict:
-    from reseek_tpu_torch.ops import kernel_wrappers
     n = len(chains)
     pairs = n * (n + 1) // 2
     want, host_s, _ = run_search(chains, "host")
     print(f"[3] host engine: {len(want.splitlines())} rows, {host_s:.2f} s")
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-    got, cold_s, drv = run_search(chains, "device")
-    launches = {k: w.launches for k, w in wrappers.items()}
+    with Launches() as launched:
+        got, cold_s, drv = run_search(chains, "device")
     if got != want:
         fail("q100 TSV differs from the host engine")
-    for k, c in launches.items():
-        if c <= 0:
-            fail(f"kernel {k} was not launched by the q100 search")
+    launched.require([k for k, v in KERNELS.items() if v[2] == "q100"],
+                     "the q100 self-search")
     print(f"[3] device engine: {len(got.splitlines())} rows byte-identical,"
-          f" cold {cold_s:.2f} s, launches {launches}")
+          f" cold {cold_s:.2f} s, launches {launched.counts}")
     torch.cuda.reset_peak_memory_stats()
     warm, stats = [], []
     for _ in range(3):
@@ -307,21 +408,28 @@ def phase_q100(chains) -> dict:
     print(f"[3] warm median {med:.3f} s ({warm}), {pairs / med:.1f} pairs/s "
           f"over {pairs} pairs; stages {json.dumps(st)}; peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    return launches
+    return launched.counts
 
 
-def phase_replica(base) -> None:
+def replica(base, n: int):
+    """n chains: base cycled, plus Gaussian coordinate noise (seed
+    REPLICA_SEED, REPLICA_NOISE A), labels <label>/r<k>; the first 1,024
+    of any size are the same chains."""
     from reseek_tpu.chain import Chain
-    from reseek_tpu.constants import DSSParams
     rng = np.random.default_rng(REPLICA_SEED)
     chains = []
-    for k in range(REPLICA_CHAINS):
+    for k in range(n):
         c = base[k % len(base)]
         noise = rng.normal(0, REPLICA_NOISE, c.coords.shape).astype(
             np.float32)
         chains.append(Chain(f"{c.label}/r{k // len(base)}", c.seq,
                             c.coords + noise))
-    pairs = REPLICA_CHAINS * (REPLICA_CHAINS + 1) // 2
+    return chains
+
+
+def phase_replica(chains) -> None:
+    from reseek_tpu.constants import DSSParams
+    pairs = len(chains) * (len(chains) + 1) // 2
     torch.cuda.reset_peak_memory_stats()
     text, secs, drv = run_search(chains, "device")
     rows = [line.split("\t") for line in text.splitlines()]
@@ -330,10 +438,146 @@ def phase_replica(base) -> None:
     short = {c.label for c in chains if len(c) < mkfl}
     if not short <= self_hits:
         fail(f"replica: {len(short - self_hits)} chains lack a self hit")
-    print(f"[4] replica {REPLICA_CHAINS} chains: {secs:.2f} s, "
+    print(f"[4] replica {len(chains)} chains: {secs:.2f} s, "
           f"{pairs / secs:.1f} pairs/s over {pairs} pairs, {len(rows)} rows "
           f"(hits {drv.hit_count}), stages {json.dumps(drv.device_stats)}, "
           f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+
+def phase_self_rev(sets) -> dict:
+    """Device self-reversal scores against the host's, per chain set."""
+    from reseek_tpu.align.pipeline import self_rev_score
+    from reseek_tpu.constants import DSSParams
+    from reseek_tpu.search.driver import _encode_all
+    from reseek_tpu_torch.search.engine import DeviceSelfSearch
+    params = DSSParams.create(MODE)
+    counts = {}
+    for name, chains in sets:
+        ecs = _encode_all(chains, params, with_self_rev=False)
+        t0 = time.perf_counter()
+        pipe = DeviceSelfSearch(ecs, params, device=DEVICE)
+        t1 = time.perf_counter()
+        with Launches() as launched:
+            got = pipe.self_rev_scores_device()
+        secs = time.perf_counter() - t1
+        launched.require([k for k, v in KERNELS.items()
+                          if v[2] == "self_rev"], f"{name} self-rev")
+        short = [i for i, ec in enumerate(ecs) if len(ec) < params.mkfl]
+        t2 = time.perf_counter()
+        with ThreadPoolExecutor(os.cpu_count() or 2) as tp:
+            want = np.float32(list(tp.map(
+                lambda i: self_rev_score(ecs[i], params), short)))
+        if not np.array_equal(got[short], want):
+            bad = int((got[short] != want).sum())
+            fail(f"{name} self-rev: {bad} chains differ from the host")
+        print(f"[5] {name}: device self-rev of {len(short)} chains equals "
+              f"the host; rev profiles {t1 - t0:.2f} s, device scores "
+              f"{secs:.2f} s, host scores {time.perf_counter() - t2:.2f} s; "
+              f"launches {launched.counts}")
+        counts = launched.counts
+    return counts
+
+
+def _rows_of(text: str, labels, col: int = 0) -> str:
+    """The lines whose column ``col`` is one of ``labels``, in order."""
+    keep = set(labels)
+    return "".join(line + "\n" for line in text.splitlines()
+                   if line.split("\t")[col] in keep)
+
+
+def phase_query(q100, db) -> dict:
+    from reseek_tpu.constants import DSSParams
+    from reseek_tpu.search import driver as host
+    from reseek_tpu_torch.search import driver as port
+    params = DSSParams.create(MODE)
+
+    def run(fn, queries, targets, **kw):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        drv = fn(queries, targets, params, options(), out, **kw)
+        return out.getvalue(), time.perf_counter() - t0, drv
+
+    dev = {"engine": "device", "device": DEVICE}
+    with Launches() as launched:
+        got, secs, drv = run(port.query_search, q100, db,
+                             chunk_size=QUERY_CHUNK, **dev)
+    launched.require(SEARCH_KERNELS, "the query-vs-DB search")
+    pairs = len(q100) * len(db)
+    print(f"[6] query-vs-DB {len(q100)} x {len(db)}: {secs:.2f} s, "
+          f"{pairs / secs:.1f} pairs/s over {pairs} pairs, "
+          f"{len(got.splitlines())} rows; {json.dumps(drv.device_stats)}; "
+          f"launches {launched.counts}")
+    five = [q100[i] for i in FIVE]
+    want, host_s, _ = run(host.query_search, five, db, engine="host")
+    if _rows_of(got, [c.label for c in five]) != want or not want:
+        fail("query-vs-DB: the five queries' rows differ from the host")
+    print(f"[6] the five queries' {len(want.splitlines())} rows equal the "
+          f"host's ({host_s:.2f} s on the host)")
+    ten = [q100[i] for i in TEN]
+    want, _, _ = run(host.query_search, ten, q100, engine="host")
+    got, _, _ = run(port.query_search, ten, q100, **dev)
+    os.environ["RESEEK_E_PREPASS_MIN"] = "1"
+    try:
+        with Launches() as prepass:
+            got_pre, _, drv = run(port.query_search, ten, q100, **dev)
+    finally:
+        del os.environ["RESEEK_E_PREPASS_MIN"]
+    if got != want or got_pre != want:
+        fail("query-vs-DB 10 x q100 differs from the host")
+    prepass.require([k for k, v in KERNELS.items()
+                     if v[2] == "query_prepass"], "the E-bound prepass")
+    print(f"[6] 10 x q100: {len(want.splitlines())} rows byte-identical, "
+          f"also with the E-bound prepass (stage 2 "
+          f"{drv.device_stats['stage2_s']:.3f} s); launches "
+          f"{prepass.counts}")
+    return prepass.counts
+
+
+def phase_fast(q100, db_chains) -> None:
+    from reseek_tpu.constants import DSSParams
+    from reseek_tpu.io.cal import write_cal
+    from reseek_tpu.search import driver as host
+    from reseek_tpu_torch.search import driver as port
+    params = DSSParams.create("fast")
+
+    def run(fn, queries, db, **kw):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        drv = fn(queries, db, params, options(mode="fast"), out,
+                 prefilter_mode="idxq", **kw)
+        return out.getvalue(), time.perf_counter() - t0, drv
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"replica{len(db_chains)}.cal")
+        t0 = time.perf_counter()
+        write_cal(db_chains, path)
+        print(f"[7] wrote {len(db_chains)} chains as .cal in "
+              f"{time.perf_counter() - t0:.2f} s")
+        with Launches() as launched:
+            got, secs, drv = run(port.fast_search, q100, path,
+                                 engine="device", device=DEVICE)
+        launched.require(SEARCH_KERNELS, "the -fast search")
+        st = drv.fast_stats
+        pairs = len(q100) * len(db_chains)
+        print(f"[7] -fast {len(q100)} x {len(db_chains)}: {secs:.2f} s, "
+              f"{pairs / secs:.1f} pairs/s over {pairs} pairs "
+              f"({st['candidates']} candidates, {st['mkf_pairs']} MKF "
+              f"pairs, {st['candidates'] / secs:.1f} candidates/s), "
+              f"{len(got.splitlines())} rows; {json.dumps(st)}; launches "
+              f"{launched.counts}")
+        five = [q100[i] for i in FIVE]
+        want, host_s, _ = run(host.fast_search, five, path, engine="host")
+    if _rows_of(got, [c.label for c in five]) != want or not want:
+        fail("-fast: the five queries' rows differ from the host")
+    print(f"[7] the five queries' {len(want.splitlines())} rows equal the "
+          f"host's ({host_s:.2f} s on the host)")
+    ten = [q100[i] for i in TEN]
+    want, _, _ = run(host.fast_search, ten, Q100, engine="host")
+    got, _, _ = run(port.fast_search, ten, Q100, engine="device",
+                    device=DEVICE)
+    if got != want or not want:
+        fail("-fast 10 x q100 differs from the host")
+    print(f"[7] 10 x q100: {len(want.splitlines())} rows byte-identical")
 
 
 def main() -> int:
@@ -354,26 +598,34 @@ def main() -> int:
     disable_tf32()
     kind = torch.cuda.get_device_name(0)
     print(f"[0] device: {kind} x {torch.cuda.device_count()}")
+    t_start = time.perf_counter()
 
     phase_build()
     chains = read_chains(Q100)
     params = DSSParams.create(MODE)
     pipe = DeviceSelfSearch(_encode_all(chains, params, with_self_rev=False),
-                            params, device="cuda")
+                            params, device=DEVICE)
     survivors = pipe.stage1_survivors()
     print(f"[2] q100 stage-1 survivors: {len(survivors)}")
     res = phase_kernels(pipe, survivors)
     phase_tie_prone(pipe.mumx)
     del pipe
-    launches = phase_q100(chains)
-    phase_replica(chains)
+    launches = {"q100": phase_q100(chains)}
+    big = replica(chains, FAST_DB_CHAINS)
+    db = big[:REPLICA_CHAINS]
+    phase_replica(db)
+    launches["self_rev"] = phase_self_rev([("q100", chains),
+                                           ("replica", db)])
+    launches["query_prepass"] = phase_query(chains, db)
+    phase_fast(chains, big)
+    print(f"[8] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": res[k]["max_abs_err"],
+         "launches": launches[run][k], "max_abs_err": res[k]["max_abs_err"],
          "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"]}
-        for k, (src, rep) in KERNELS.items()]}))
+        for k, (src, rep, run) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,13 +1,17 @@
 """Command line of the port.
 
 Usage:  python -m reseek_tpu_torch search INPUT (--sensitive |
-        --verysensitive | --fast) [-o OUT] [--columns ...]
+        --verysensitive | --fast) [--db DB [--dbmu MU.fa] [--idxq |
+        --idxt]] [--global] [-o OUT] [--columns ...]
         [--engine auto|device|host] [--device cuda|cpu]
 
-The all-vs-all self-search is ported; ``--db`` (query-vs-DB and -fast),
-``--global`` and the multi-host flags are not ported yet and exit with an
-error.  The argument helpers and the parameter handling follow
-reseek_tpu.cli's ``search`` command.
+Without ``--db`` the all-vs-all self-search; with ``--db`` query-vs-DB,
+and with ``--fast --db`` the -fast prefilter pipeline (``--dbmu``,
+``--idxq``, ``--idxt`` as in reseek_tpu).  ``--global`` runs
+reseek_tpu's host global path.  The multi-host flags (``--nprocs`` > 1,
+``--procid``, ``--coord``, ``--scratch``, ``--resume``) are not ported
+yet and exit with an error.  The argument helpers, the parameter handling
+and the routing follow reseek_tpu.cli's ``search`` command.
 """
 
 from __future__ import annotations
@@ -19,8 +23,7 @@ from typing import List, Optional
 from reseek_tpu.cli import (_add_mode_args, _mode_from_args,
                             _read_chains_or_artifact)
 
-NOT_PORTED = ("db", "dbmu", "global_aln", "idxq", "idxt", "procid", "coord",
-              "scratch", "resume")
+NOT_PORTED = ("procid", "coord", "scratch", "resume")
 
 
 def cmd_search(args) -> int:
@@ -29,7 +32,7 @@ def cmd_search(args) -> int:
     from reseek_tpu.search.driver import SearchOptions
     from reseek_tpu.utils.logger import open_log
     from reseek_tpu_torch.device import disable_tf32
-    from reseek_tpu_torch.search.driver import self_search
+    from reseek_tpu_torch.search import driver
 
     flags = [f for f in NOT_PORTED if getattr(args, f)]
     if args.nprocs > 1:
@@ -66,7 +69,7 @@ def cmd_search(args) -> int:
              if args.label1 and args.label2 else None)
     options = SearchOptions(columns=parse_columns(args.columns),
                             max_evalue=max_e, no_self=args.noself,
-                            mode=mode,
+                            mode=mode, global_aln=args.global_aln,
                             scores_are_not_evalues=args.scores_are_not_evalues,
                             trace_labels=trace)
     out = open(args.output, "w") if args.output else sys.stdout
@@ -74,8 +77,21 @@ def cmd_search(args) -> int:
     options.aln_out = aln
     try:
         chains = _read_chains_or_artifact(args.input, params)
-        drv = self_search(chains, params, options, out, engine=args.engine,
-                          device=args.device)
+        kw = {"engine": args.engine, "device": args.device}
+        if args.db and mode == "fast":
+            drv = driver.fast_search(
+                chains, args.db, params, options, out, dbmu=args.dbmu,
+                prefilter_mode=("idxq" if args.idxq
+                                else "idxt" if args.idxt else None), **kw)
+        elif args.db:
+            from reseek_tpu.io.artifact import is_artifact
+            # structure files stream (memory O(queries + chunk)); .rsdx
+            # artifacts load pre-encoded
+            db = (_read_chains_or_artifact(args.db, params)
+                  if is_artifact(args.db) else args.db)
+            drv = driver.query_search(chains, db, params, options, out, **kw)
+        else:
+            drv = driver.self_search(chains, params, options, out, **kw)
         drv.run_stats(n_threads=max(1, args.threads))
     finally:
         if args.output:
@@ -88,7 +104,8 @@ def cmd_search(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m reseek_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("search", help="all-vs-all structure search")
+    p = sub.add_parser("search", help="all-vs-all, query-vs-DB or -fast "
+                                      "structure search")
     p.add_argument("input")
     _add_mode_args(p)
     p.add_argument("--output", "-o")
@@ -118,12 +135,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--label1", help="with --label2: log a pipeline trace "
                                     "for this chain pair")
     p.add_argument("--label2")
+    p.add_argument("--db", help="database: query-vs-DB search, or with "
+                                "--fast the prefilter pipeline")
+    p.add_argument("--dbmu", help="with --fast --db: Mu-letter FASTA of "
+                                  "the database for the prefilter")
+    p.add_argument("--global", dest="global_aln", action="store_true",
+                   help="global alignment (host path)")
+    p.add_argument("--idxq", action="store_true",
+                   help="with --fast: query-neighbourhood prefilter index")
+    p.add_argument("--idxt", action="store_true",
+                   help="with --fast: target-neighbourhood prefilter index")
     # accepted so that reseek_tpu command lines fail clearly
-    p.add_argument("--db")
-    p.add_argument("--dbmu")
-    p.add_argument("--global", dest="global_aln", action="store_true")
-    p.add_argument("--idxq", action="store_true")
-    p.add_argument("--idxt", action="store_true")
     p.add_argument("--nprocs", type=int, default=1)
     p.add_argument("--procid", type=int)
     p.add_argument("--coord")

@@ -1,10 +1,11 @@
 """Build and ctypes binding of the port's hand-written CUDA kernels.
 
-The sources in ``csrc/`` have a plain C interface (no PyTorch headers),
-so one ``nvcc`` call builds them into a shared library in seconds.  The
-build runs at first use, into ``reseek_tpu_torch/_build/`` (git-ignored),
-and is reused while it is newer than every source.  Nothing here runs at
-import time: this module imports on machines without ``nvcc``.
+The sources in ``csrc/`` have a plain C interface (no PyTorch headers):
+one ``nvcc`` per source, all started together, compiles them in seconds,
+and one more links the objects into a shared library.  The build runs at
+first use, into ``reseek_tpu_torch/_build/`` (git-ignored), and is reused
+while it is newer than every source.  Nothing here runs at import time:
+this module imports on machines without ``nvcc``.
 
 Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an error.
@@ -28,8 +29,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = ("mu_sweep.cu", "sw_traceback.cu", "postalign.cu")
 LIB_NAME = "libreseek_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,7 +39,9 @@ _F = ctypes.c_float
 # argument types of each C entry (pointers and the stream as void*)
 _SIGNATURES = {
     "mu_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "sw_score_sweep": [_P, _P, _I, _I, _I, _F, _F, _P],
     "sw_traceback": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "sw_score": [_P, _P, _I, _I, _I, _F, _F, _P],
     "walk_traceback": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "lddt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
@@ -62,9 +66,25 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _run(cmds):
+    """Run the commands concurrently; (seconds, joined output).  Raises
+    with the output of the first that failed."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{out}")
+    return time.perf_counter() - t0, "".join(outs)
+
+
 @functools.lru_cache(maxsize=1)
 def build() -> BuildInfo:
-    """Compile csrc/*.cu into one shared library (once per process)."""
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link them
+    into one shared library (once per process)."""
     so = BUILD / LIB_NAME
     log_path = BUILD / (LIB_NAME + ".log")
     srcs = [CSRC / s for s in SOURCES]
@@ -73,17 +93,22 @@ def build() -> BuildInfo:
                 so.stat().st_mtime >= s.stat().st_mtime for s in srcs):
             return BuildInfo(so, 0.0, log_path.read_text())
         BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        secs = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        nvcc = _nvcc()
+        tag = f"{os.getpid()}.tmp"
+        objs = [BUILD / f"{s.stem}.{tag}.o" for s in srcs]
+        tmp = BUILD / f"{LIB_NAME}.{tag}"
+        try:
+            secs, log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                              for s, o in zip(srcs, objs)])
+            link_s, link_log = _run([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                      *map(str, objs)]])
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         os.replace(tmp, so)
+        log += link_log
         log_path.write_text(log)
-    return BuildInfo(so, secs, log)
+    return BuildInfo(so, secs + link_s, log)
 
 
 @functools.lru_cache(maxsize=1)

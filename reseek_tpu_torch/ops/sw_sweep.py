@@ -1,12 +1,22 @@
-"""Mu-filter Smith-Waterman scores, counterpart of reseek_tpu/ops/sw_sweep.py.
+"""Row-sweep Smith-Waterman scores, counterpart of
+reseek_tpu/ops/sw_sweep.py.
 
-The 36-letter Mu filter scores with an integer matrix and integer gap
-penalties, so every DP value is an exact small integer in float32 and any
-evaluation order gives the scores of ops/sw_np.sw_score bit for bit.
-``mu_sw_scores`` launches the CUDA row-sweep kernel (csrc/mu_sweep.cu,
-which replaces the Pallas kernels sw_score_sweep_pallas and
-mu_sw_score_fused_pallas) on CUDA tensors, and runs ``mu_sw_scores_ref``,
-its plain version, on CPU tensors.
+Two entries, one CUDA source (csrc/mu_sweep.cu, which replaces the Pallas
+kernels sw_score_sweep_pallas and mu_sw_score_fused_pallas):
+
+- ``mu_sw_scores``: the Mu filter on letter rows.  The 36-letter matrix
+  and the gap penalties are integers, so every DP value is an exact small
+  integer in float32 and any evaluation order gives the scores of
+  ops/sw_np.sw_score bit for bit.
+- ``sw_score_sweep``: the same sweep over a float32 substitution tensor
+  (the score-only stage-2 prepass).  It follows the op order of the JAX
+  ``_row_step`` (F as kext + cummax(H + open - kext), kext = float(k) *
+  ext), so the kernel equals its plain version bit for bit; the closed
+  form of F rounds differently from the wavefront, by up to ~1e-3 on
+  profile scores, and callers gate with a guard band.
+
+Each launches its kernel on CUDA tensors and runs its plain version
+(``mu_sw_scores_ref``, ``sw_score_sweep_ref``) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -57,29 +67,46 @@ def mu_sw_scores(a: torch.Tensor, b: torch.Tensor, mumx: torch.Tensor,
 mu_sw_scores.launches = 0
 
 
-def mu_sw_scores_ref(a: torch.Tensor, b: torch.Tensor, mumx: torch.Tensor,
-                     open_: float, ext: float) -> torch.Tensor:
-    """Plain version: the row sweep of reseek_tpu sw_sweep.sw_score_sweep
-    over substitution rows gathered from the table one row at a time (the
-    [B, LA, LB] tensor is never built), F as a running max
-    (``torch.cummax``) of its closed form."""
-    bsz, la = a.shape
-    lb = b.shape[1]
-    dev = a.device
-    al = a.long()
-    bl = b.long()
+def sw_score_sweep(s: torch.Tensor, open_: float,
+                   ext: float) -> torch.Tensor:
+    """Best local SW score [B] float32 (>= 0) of each substitution matrix
+    s [B, LA, LB] float32 (NEG at padding)."""
+    if s.device.type == "cpu":
+        return sw_score_sweep_ref(s, open_, ext)
+    if s.dtype != torch.float32 or s.dim() != 3:
+        raise TypeError("sw_score_sweep: s must be float32 [B, LA, LB]")
+    if not s.is_contiguous():
+        raise ValueError("sw_score_sweep: s must be contiguous")
+    bsz, la, lb = s.shape
+    if lb > MAX_LB:
+        raise ValueError(f"sw_score_sweep: LB {lb} > {MAX_LB}")
+    out = torch.zeros(bsz, dtype=torch.float32, device=s.device)
+    if bsz == 0 or la == 0 or lb == 0:
+        return out
+    sw_score_sweep.launches += 1
+    kernels.check(kernels.lib().sw_score_sweep(
+        kernels.ptr(s), kernels.ptr(out), bsz, la, lb, float(open_),
+        float(ext), kernels.stream_of(s)), "sw_score_sweep")
+    return out
+
+
+sw_score_sweep.launches = 0
+
+
+def _sweep_ref(rows, nrows: int, bsz: int, lb: int, open_: float,
+               ext: float, dev) -> torch.Tensor:
+    """The row sweep of reseek_tpu sw_sweep.sw_score_sweep over the
+    substitution rows rows(i) [B, LB], i < nrows, in the op order of its
+    ``_row_step``; F as a running max (``torch.cummax``) of its closed
+    form."""
     o = float(np.float32(open_))
     e = float(np.float32(ext))
     kext = torch.arange(lb, dtype=torch.float32, device=dev) * e
     neg = torch.full((bsz, lb), float(NEG), dtype=torch.float32, device=dev)
     h_prev = h_prev2 = e_prev = neg
     best = torch.zeros((bsz, lb), dtype=torch.float32, device=dev)
-    # rows after the last real letter score NEG/2 and cannot raise the best
-    real = (al != 36).any(0).nonzero()
-    nrows = int(real[-1]) + 1 if len(real) else 0
     for i in range(nrows):
-        s_row = mumx[al[:, i, None], bl]
-        # F(i,j) = j*ext + cummax_{k<=j}(H(i-1,k-2) + open - k*ext)
+        # F(i,j) = kext(j) + cummax_{k<=j}((H(i-1,k-2) + open) - kext(k))
         fa = torch.cat([neg[:, :2], h_prev[:, :-2]], 1) + o
         f = torch.cummax(fa - kext, dim=1).values + kext
         # E(i,j) = max(H(i-2,j-1) + open, E(i-1,j) + ext)
@@ -87,7 +114,36 @@ def mu_sw_scores_ref(a: torch.Tensor, b: torch.Tensor, mumx: torch.Tensor,
                            e_prev + e)
         m = torch.cat([neg[:, :1], h_prev[:, :-1]], 1)
         m = torch.maximum(torch.maximum(m, ev), f.clamp_min(0.0))
-        h = m + s_row
+        h = m + rows(i)
         h_prev2, h_prev, e_prev = h_prev, h, ev
         best = torch.maximum(best, h)
     return best.amax(1).clamp_min(0.0)
+
+
+def mu_sw_scores_ref(a: torch.Tensor, b: torch.Tensor, mumx: torch.Tensor,
+                     open_: float, ext: float) -> torch.Tensor:
+    """Plain version of mu_sw_scores: the row sweep over substitution rows
+    gathered from the table one row at a time (the [B, LA, LB] tensor is
+    never built), trailing rows of padding skipped (they score NEG/2 and
+    cannot raise the best)."""
+    bsz = a.shape[0]
+    lb = b.shape[1]
+    al = a.long()
+    bl = b.long()
+    real = (al != 36).any(0).nonzero()
+    nrows = int(real[-1]) + 1 if len(real) else 0
+    if lb == 0:
+        return torch.zeros(bsz, dtype=torch.float32, device=a.device)
+    return _sweep_ref(lambda i: mumx[al[:, i, None], bl], nrows, bsz, lb,
+                      open_, ext, a.device)
+
+
+def sw_score_sweep_ref(s: torch.Tensor, open_: float,
+                       ext: float) -> torch.Tensor:
+    """Plain version of sw_score_sweep: the row sweep over the rows of
+    s."""
+    bsz, la, lb = s.shape
+    if la == 0 or lb == 0:
+        return torch.zeros(bsz, dtype=torch.float32, device=s.device)
+    return _sweep_ref(lambda i: s[:, i, :], la, bsz, lb, open_, ext,
+                      s.device)

@@ -1,14 +1,17 @@
-"""Bit-exact Smith-Waterman with traceback, counterpart of
-reseek_tpu/ops/sw_pallas.py (sw_traceback_pallas) and ops/sw_jax.py.
+"""Bit-exact Smith-Waterman wavefront, counterpart of
+reseek_tpu/ops/sw_pallas.py (sw_traceback_pallas, sw_score_pallas) and
+ops/sw_jax.py.
 
-Same per-cell float32 arithmetic and tie rules as the Pallas kernel's
+Same per-cell float32 arithmetic and tie rules as the Pallas kernels'
 ``_step`` (itself ops/sw_np.py, src/sw.cpp:79-212).  The traceback keeps
 the JAX package's skewed layout at this public function: tb [Dp, B, LA]
 uint8 with tb[d, b, i] = src | 4*e_pref | 8*f_pref for cell (i, d-i), Dp =
 LA+LB-1 rounded up to 8.  Only cells with 0 <= d-i < LB are defined.
 
-``sw_traceback`` launches the CUDA kernel (csrc/sw_traceback.cu) on CUDA
-tensors and runs ``sw_traceback_ref``, its plain version, on CPU tensors.
+``sw_traceback`` and ``sw_score`` (score only, equal to sw_traceback's
+best bit for bit) launch the CUDA kernels of csrc/sw_traceback.cu on CUDA
+tensors and run ``sw_traceback_ref`` / ``sw_score_ref``, their plain
+versions, on CPU tensors.
 """
 
 from __future__ import annotations
@@ -28,18 +31,22 @@ def diag_count(la: int, lb: int) -> int:
     return -(-(la + lb - 1) // K_DIAGS) * K_DIAGS
 
 
+def _check(name: str, s: torch.Tensor) -> None:
+    if s.dtype != torch.float32 or s.dim() != 3:
+        raise TypeError(f"{name}: s must be float32 [B, LA, LB]")
+    if not s.is_contiguous():
+        raise ValueError(f"{name}: s must be contiguous")
+    if s.shape[1] > MAX_LA:
+        raise ValueError(f"{name}: LA {s.shape[1]} > {MAX_LA}")
+
+
 def sw_traceback(s: torch.Tensor, open_: float, ext: float):
     """s [B, LA, LB] float32 (NEG-padded) -> (best [B] float32, bi [B]
     int32, bj [B] int32, tb [Dp, B, LA] uint8)."""
     if s.device.type == "cpu":
         return sw_traceback_ref(s, open_, ext)
-    if s.dtype != torch.float32 or s.dim() != 3:
-        raise TypeError("sw_traceback: s must be float32 [B, LA, LB]")
-    if not s.is_contiguous():
-        raise ValueError("sw_traceback: s must be contiguous")
+    _check("sw_traceback", s)
     b, la, lb = s.shape
-    if la > MAX_LA:
-        raise ValueError(f"sw_traceback: LA {la} > {MAX_LA}")
     dp = diag_count(la, lb)
     dev = s.device
     best = torch.empty(b, dtype=torch.float32, device=dev)
@@ -59,28 +66,41 @@ def sw_traceback(s: torch.Tensor, open_: float, ext: float):
 sw_traceback.launches = 0
 
 
-def sw_traceback_ref(s: torch.Tensor, open_: float, ext: float):
-    """Plain version: one step per anti-diagonal over [B, LA] lanes, the
-    exact op order of the Pallas ``_step``; the best cell by its diagonal
-    rule (strict improvement, or an equal value at a smaller i while the
-    best is > 0).  Diagonals past LA+LB-1 are zero-filled."""
+def sw_score(s: torch.Tensor, open_: float, ext: float) -> torch.Tensor:
+    """s [B, LA, LB] float32 (NEG-padded) -> best local score [B] float32
+    (>= 0), bit-equal to sw_traceback's best."""
+    if s.device.type == "cpu":
+        return sw_score_ref(s, open_, ext)
+    _check("sw_score", s)
+    b, la, lb = s.shape
+    best = torch.zeros(b, dtype=torch.float32, device=s.device)
+    if b == 0 or la == 0 or lb == 0:
+        return best
+    sw_score.launches += 1
+    kernels.check(kernels.lib().sw_score(
+        kernels.ptr(s), kernels.ptr(best), b, la, lb, float(open_),
+        float(ext), kernels.stream_of(s)), "sw_score")
+    return best
+
+
+sw_score.launches = 0
+
+
+def _wavefront_ref(s: torch.Tensor, open_: float, ext: float, trace: bool):
+    """Yield (d, H of diagonal d [B, LA], tb byte row [B, LA] or None) for
+    each anti-diagonal d < LA+LB-1: one step over [B, LA] lanes in the
+    exact op order of the Pallas ``_step``, S = NEG outside the band."""
     b, la, lb = s.shape
     dev = s.device
     o = float(np.float32(open_))
     e = float(np.float32(ext))
-    d_total = la + lb - 1
     lane = torch.arange(la, device=dev)
     neg = torch.full((b, la), float(NEG), dtype=torch.float32, device=dev)
     neg1 = neg[:, :1]
     neg2 = neg[:, :2]
     h1 = h2 = h3 = e1 = f1 = neg
-    best = torch.zeros(b, dtype=torch.float32, device=dev)
-    bi = torch.zeros(b, dtype=torch.int32, device=dev)
-    bj = torch.zeros(b, dtype=torch.int32, device=dev)
-    tb = torch.zeros((diag_count(la, lb), b, la), dtype=torch.uint8,
-                     device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    for d in range(d_total):
+    for d in range(la + lb - 1):
         j = d - lane
         in_band = (j >= 0) & (j < lb)
         s_diag = torch.where(in_band, s[:, lane, j.clamp(0, lb - 1)],
@@ -94,25 +114,55 @@ def sw_traceback_ref(s: torch.Tensor, open_: float, ext: float):
         f_pref = f_open >= f_ext
         fv = torch.where(f_pref, f_open, f_ext)
         m = torch.cat([neg1, h2[:, :-1]], 1)
-        src = torch.zeros((b, la), dtype=torch.uint8, device=dev)
         take_e = ev > m
         m = torch.where(take_e, ev, m)
-        src[take_e] = 1
         take_f = fv > m
         m = torch.where(take_f, fv, m)
-        src[take_f] = 2
         floor = zero >= m
         m = torch.where(floor, zero, m)
-        src[floor] = 3
         h = m + s_diag
         h3, h2, h1, e1, f1 = h2, h1, h, ev, fv
+        code = None
+        if trace:
+            code = torch.zeros((b, la), dtype=torch.uint8, device=dev)
+            code[take_e] = 1
+            code[take_f] = 2
+            code[floor] = 3
+            code |= (e_pref.to(torch.uint8) << 2) | (f_pref.to(torch.uint8)
+                                                     << 3)
+        yield d, h, code
 
+
+def sw_traceback_ref(s: torch.Tensor, open_: float, ext: float):
+    """Plain version: the wavefront of ``_wavefront_ref``; the best cell by
+    the Pallas diagonal rule (strict improvement, or an equal value at a
+    smaller i while the best is > 0).  Diagonals past LA+LB-1 are
+    zero-filled."""
+    b, la, lb = s.shape
+    dev = s.device
+    best = torch.zeros(b, dtype=torch.float32, device=dev)
+    bi = torch.zeros(b, dtype=torch.int32, device=dev)
+    bj = torch.zeros(b, dtype=torch.int32, device=dev)
+    tb = torch.zeros((diag_count(la, lb), b, la), dtype=torch.uint8,
+                     device=dev)
+    for d, h, code in _wavefront_ref(s, open_, ext, trace=True):
         dmax = h.amax(1)
         di = h.argmax(1).to(torch.int32)    # first index among equal maxima
         take = (dmax > best) | ((dmax == best) & (di < bi) & (best > 0))
         best = torch.where(take, dmax, best)
         bi = torch.where(take, di, bi)
         bj = torch.where(take, d - di, bj)
-        tb[d] = src | (e_pref.to(torch.uint8) << 2) | (f_pref.to(torch.uint8)
-                                                       << 3)
+        tb[d] = code
     return best, bi, bj, tb
+
+
+def sw_score_ref(s: torch.Tensor, open_: float, ext: float) -> torch.Tensor:
+    """Plain version of sw_score: the running max of every diagonal's H
+    (out-of-band lanes sit near NEG and never reach it), floored at 0, as
+    the Pallas ``_score_kernel`` keeps its bestv."""
+    best = torch.zeros(s.shape[0], dtype=torch.float32, device=s.device)
+    if s.shape[1] == 0 or s.shape[2] == 0:
+        return best
+    for _, h, _ in _wavefront_ref(s, open_, ext, trace=False):
+        best = torch.maximum(best, h.amax(1))
+    return best

@@ -1,31 +1,55 @@
-"""All-vs-all self search, counterpart of ``reseek_tpu.search.driver``'s
-``self_search`` and ``_self_search_device``.
+"""Search drivers, counterpart of ``reseek_tpu.search.driver``: the
+all-vs-all ``self_search``, query-vs-DB ``query_search`` and the -fast
+pipeline ``fast_search``, each with its device branch on the port's engine
+(search/engine.py).
 
-The host layer (encode, PairAligner, SearchDriver, emit, the native MKF
-and exact-SW kernels) is reseek_tpu's own; this module only swaps the
-device engine for the port's (search/engine.py).
+The host layer (encode, the Mu prefilter, PairAligner, SearchDriver, emit,
+the native MKF and exact-SW kernels, the host per-pair paths) is
+reseek_tpu's own; this module only swaps the device engine for the
+port's.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, TextIO
+from typing import Dict, Iterable, List, Optional, TextIO
 
 import numpy as np
 import torch
 
-from reseek_tpu.align.pipeline import FLT_MAX, self_rev_score
+from reseek_tpu.align.pipeline import FLT_MAX, EncodedChain, self_rev_score
 from reseek_tpu.chain import Chain
 from reseek_tpu.constants import DSSParams
+from reseek_tpu.encoder.dss import encode_chain
 from reseek_tpu.search import driver as host_driver
 from reseek_tpu.search.driver import (SearchDriver, SearchOptions,
                                       _encode_all, _fwd_displayed,
                                       _maybe_trace)
+from reseek_tpu.search.prefilter import prefilter_search
 from reseek_tpu_torch.device import DeviceLike, resolve
 from reseek_tpu_torch.search.engine import DeviceSelfSearch
+
+
+def _pool() -> ThreadPoolExecutor:
+    """Host pool for self-rev, MKF long pairs and encodes; one core is
+    left for the main thread, which drives the device."""
+    return ThreadPoolExecutor(
+        max_workers=max(1, min(32, (os.cpu_count() or 4) - 1)))
+
+
+def _need_all(options: SearchOptions) -> bool:
+    """With the E-gate off, rows without E-values are emitted, so pairs
+    below MinFwdScore still need their paths (no prepass)."""
+    return options.scores_are_not_evalues or math.isinf(options.max_evalue)
+
+
+def _add_stats(stats: Dict[str, float], pipe: DeviceSelfSearch) -> None:
+    for k, v in pipe.seconds.items():
+        stats[k + "_s"] = stats.get(k + "_s", 0.0) + v
 
 
 def self_search(chains: List[Chain], params: DSSParams,
@@ -37,13 +61,16 @@ def self_search(chains: List[Chain], params: DSSParams,
     engine: "device" runs the port's engine on ``device`` (default
     "cuda", which raises without a card); "host" runs reseek_tpu's
     per-pair host path; "auto" is "device" on CUDA when a card is present,
-    else "host".  With the device engine the returned driver carries
-    ``device_stats``: host-clock walls of encode, stage 1, stage 3 and the
-    host finish (``*_s``) and the stage-1 survivor count."""
+    else "host".  -global (options.global_aln) runs reseek_tpu's host
+    global path whatever the engine, as reseek_tpu does.  With the device
+    engine the returned driver carries ``device_stats``: host-clock walls
+    of encode, stage 1, stage 3 and the host finish (``*_s``) and the
+    stage-1 survivor count."""
     if mesh is not None:
         raise NotImplementedError("self_search: multi-GPU is not ported yet")
     if options.global_aln:
-        raise NotImplementedError("self_search: -global is not ported yet")
+        return host_driver.self_search(chains, params, options, out,
+                                       engine="host")
     if engine == "auto":
         engine = "device" if torch.cuda.is_available() else "host"
     if engine == "host":
@@ -63,7 +90,8 @@ def _self_search_device(chains: List[Chain], params: DSSParams,
     t0 = time.perf_counter()
     ecs = _encode_all(chains, params, with_self_rev=False)
     have_selfrev = all(ec.self_rev_score != FLT_MAX for ec in ecs)
-    pipe = DeviceSelfSearch(ecs, params, device=device)
+    pipe = DeviceSelfSearch(ecs, params, device=device,
+                            with_rev_profiles=False)
     t_encode = time.perf_counter() - t0
 
     drv = SearchDriver(params, options, out)
@@ -84,9 +112,7 @@ def _self_search_device(chains: List[Chain], params: DSSParams,
             if (a, b) not in seen:
                 seen.add((a, b))
                 long_pairs.append((a, b))
-    # leave one core for the main thread, which drives the device
-    pool = ThreadPoolExecutor(
-        max_workers=max(1, min(32, (os.cpu_count() or 4) - 1)))
+    pool = _pool()
     try:
         sr_futs = {}
         if not have_selfrev:
@@ -103,10 +129,10 @@ def _self_search_device(chains: List[Chain], params: DSSParams,
         # overlap with the stage-3 survivor alignment below
         mkf_futs = [(a, b, pool.submit(drv.aligner.align, ecs[a], ecs[b]))
                     for a, b in long_pairs]
-        need_all = (options.scores_are_not_evalues
-                    or math.isinf(options.max_evalue))
+        need_all = _need_all(options)
         by_pair = pipe.align_survivors(
-            survivors, evalue_gate=None if need_all else options.max_evalue,
+            survivors, need_all_paths=need_all,
+            evalue_gate=None if need_all else options.max_evalue,
             fwd_displayed=_fwd_displayed(options))
         for a, b, f in mkf_futs:
             res = f.result()
@@ -135,3 +161,348 @@ def _self_search_device(chains: List[Chain], params: DSSParams,
                         **{k + "_s": v for k, v in pipe.seconds.items()},
                         "survivors": len(survivors)}
     return drv
+
+
+def query_search(queries: Iterable[Chain], db_chains, params: DSSParams,
+                 options: SearchOptions, out: TextIO, engine: str = "auto",
+                 device: DeviceLike = None, mesh=None,
+                 chunk_size: Optional[int] = None) -> SearchDriver:
+    """Query-vs-DB scan (src/runquery.cpp; role inversion: each DB chain
+    is the 'A' side, the query set is scanned as targets, and the output
+    orientation is flipped back).
+
+    db_chains: a chain list, any iterable, or a PATH (streamed).  The DB
+    side runs in chunks of ``chunk_size`` chains (default
+    $RESEEK_QUERY_CHUNK or 4096), so memory stays proportional to the
+    queries plus one chunk.  engine and device as in ``self_search``;
+    "host" runs reseek_tpu's per-pair host path."""
+    if mesh is not None:
+        raise NotImplementedError("query_search: multi-GPU is not ported "
+                                  "yet")
+    if engine == "auto":
+        engine = "device" if torch.cuda.is_available() else "host"
+    if engine == "host":
+        return host_driver.query_search(queries, db_chains, params, options,
+                                        out, engine="host")
+    if engine != "device":
+        raise ValueError(f"unknown engine {engine!r}")
+    dev = resolve(device)
+    if isinstance(db_chains, str):
+        from reseek_tpu.io.reader import iter_chains
+        db_iter = (c for c in iter_chains(db_chains) if len(c) > 0)
+    else:
+        db_iter = iter(db_chains)
+    if chunk_size is None:
+        chunk_size = int(os.environ.get("RESEEK_QUERY_CHUNK", "4096"))
+    return _query_search_device(list(queries), db_iter, params, options,
+                                out, dev, chunk_size)
+
+
+def _query_search_device(queries: List[Chain], db_iter, params: DSSParams,
+                         options: SearchOptions, out: TextIO,
+                         device: torch.device,
+                         chunk_size: int) -> SearchDriver:
+    """Query-vs-DB on the port's engine, DB side chunked: per chunk, one
+    engine over queries + chunk chains runs the Mu filter on the explicit
+    pair rectangle, then align_survivors; self-rev and the long (MKF)
+    pairs run on the host pool, and chunk N+1's encode overlaps chunk N's
+    device stages.  ``device_stats`` sums the stage walls over chunks."""
+    t0 = time.perf_counter()
+    q_ecs = _encode_all(queries, params, with_self_rev=False)
+    nq = len(q_ecs)
+    drv = SearchDriver(params, options, out)
+    need_all = _need_all(options)
+    stats: Dict[str, float] = {"chunks": 0, "mu_pairs": 0, "survivors": 0}
+    pool = _pool()
+    try:
+        # query self-rev once, before the chunk loop
+        sr_futs = {i: pool.submit(self_rev_score, q_ecs[i], params)
+                   for i, ec in enumerate(q_ecs)
+                   if ec.self_rev_score == FLT_MAX}
+        for i, f in sr_futs.items():
+            q_ecs[i].self_rev_score = f.result()
+
+        # the DB iterator is consumed serially: the next chunk's encode is
+        # submitted only after the previous one resolved
+        def encode_chunk():
+            chunk = list(itertools.islice(db_iter, chunk_size))
+            if not chunk:
+                return None
+            return _encode_all(chunk, params, with_self_rev=False)
+
+        pending = pool.submit(encode_chunk)
+        first_chunk = True
+        while True:
+            t_ecs = pending.result()
+            if t_ecs is None:
+                break
+            pending = pool.submit(encode_chunk)
+            ecs = q_ecs + t_ecs
+            nt = len(t_ecs)
+            pipe = DeviceSelfSearch(ecs, params, device=device,
+                                    with_rev_profiles=False)
+            if first_chunk:
+                _maybe_trace(drv, ecs, options)
+                first_chunk = False
+            drv.query_count += nt
+            drv.processed_pairs += nq * nt
+            lens = np.array([len(ec) for ec in ecs])
+            sr_futs = {i: pool.submit(self_rev_score, ecs[i], params)
+                       for i, ec in enumerate(ecs)
+                       if ec.self_rev_score == FLT_MAX}
+            # the pair rectangle, A side = DB chain (index nq + ti), B side
+            # = query
+            qi, ti = np.meshgrid(np.arange(nq), np.arange(nt),
+                                 indexing="ij")
+            pairs = np.stack([nq + ti.ravel(), qi.ravel()], axis=1)
+            is_long = ((lens[pairs[:, 0]] >= params.mkfl)
+                       | (lens[pairs[:, 1]] >= params.mkfl))
+            long_pairs = pairs[is_long]
+            dev_pairs = pairs[~is_long]
+            stats["mu_pairs"] += len(dev_pairs)
+            if params.omega > 0 and len(dev_pairs):
+                mu = pipe.stage1_scores(dev_pairs)
+                dev_pairs = dev_pairs[mu >= params.omega]
+            stats["survivors"] += len(dev_pairs)
+            for i, f in sr_futs.items():
+                ecs[i].self_rev_score = f.result()
+            mkf_futs = [(int(a) - nq, int(b),
+                         pool.submit(drv.aligner.align, ecs[a], ecs[b]))
+                        for a, b in long_pairs]
+            dev_results = pipe.align_survivors(
+                dev_pairs, need_all_paths=need_all,
+                evalue_gate=None if need_all else options.max_evalue,
+                fwd_displayed=_fwd_displayed(options))
+            _add_stats(stats, pipe)
+            stats["chunks"] += 1
+            by_pair = {(a - nq, b): r
+                       for (a, b), r in dev_results.items() if r.path}
+            for t_i, q_i, f in mkf_futs:
+                res = f.result()
+                if res is not None and res.path:
+                    by_pair[(t_i, q_i)] = res
+            # reference row order: per DB chain in stream order, each vs
+            # the query set, orientation flipped back (src/runquery.cpp)
+            for t_i in range(nt):
+                for q_i in range(nq):
+                    res = by_pair.get((t_i, q_i))
+                    if res is not None:
+                        drv.emit(res, ecs[nq + t_i], ecs[q_i], False)
+    finally:
+        pool.shutdown(wait=True)
+    drv.device_stats = {"wall_s": time.perf_counter() - t0, **stats}
+    return drv
+
+
+def _mu_letters(chains: Iterable[Chain]):
+    """Mu letters of each chain, in order, encoded in batches on a thread
+    pool (the native encoder releases the GIL)."""
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 2) as tp:
+        it = iter(chains)
+        while True:
+            batch = list(itertools.islice(it, 1024))
+            if not batch:
+                return
+            yield from tp.map(lambda c: encode_chain(c).mu_letters, batch)
+
+
+def fast_search(queries: List[Chain], db, params: DSSParams,
+                options: SearchOptions, out: TextIO,
+                dbmu: Optional[str] = None, engine: str = "auto",
+                device: DeviceLike = None, mesh=None,
+                prefilter_mode: Optional[str] = None) -> SearchDriver:
+    """The big-DB prefilter pipeline (-fast -db, src/search.cpp:62-112):
+    (1) reseek_tpu's Mu k-mer prefilter streams the whole DB and keeps the
+    top-1500 targets per query; (2) only the surviving targets are re-read
+    (random access for .bca, a second pass otherwise) and aligned with
+    SENSITIVE parameters (PostMuFilter, src/postmufilter.cpp:116-208; one
+    row per hit, query side up).
+
+    db: a path (streamed) or a chain list; dbmu: a Mu-letter FASTA of the
+    DB, so stage 1 skips encoding it (-dbmu); prefilter_mode: None,
+    "idxq" or "idxt" as in reseek_tpu.  engine "device" aligns the
+    candidates on the port's engine; "host" runs reseek_tpu's fast_search
+    host path; "auto" takes the device when CUDA is present and there are
+    at least $RESEEK_FAST_DEVICE_MIN (20,000) candidate pairs, else
+    reseek_tpu's host stage 2 (reseek_tpu's own rule: small candidate
+    sets finish sooner on the host).  The returned driver carries
+    ``fast_stats``: candidates, survivors read, wall of each stage."""
+    if mesh is not None:
+        raise NotImplementedError("fast_search: multi-GPU is not ported yet")
+    if engine == "host":
+        return host_driver.fast_search(queries, db, params, options, out,
+                                       dbmu=dbmu, engine="host",
+                                       prefilter_mode=prefilter_mode)
+    if engine not in ("auto", "device"):
+        raise ValueError(f"unknown engine {engine!r}")
+    dev = resolve(device) if engine == "device" else None
+    t0 = time.perf_counter()
+    sens = DSSParams.create("sensitive")
+    # queries encode once with sensitive params (Mu letters do not depend
+    # on the parameters, so the prefilter reuses them)
+    q_ecs = _encode_all(queries, sens, with_self_rev=False)
+    db_is_path = isinstance(db, str)
+    n_targets = 0
+
+    def target_mu_stream():
+        nonlocal n_targets
+        if dbmu is not None:
+            from reseek_tpu.io.mufasta import iter_mu_fasta
+            for i, (_label, letters) in enumerate(iter_mu_fasta(dbmu)):
+                n_targets = i + 1
+                yield i, letters
+        elif db_is_path:
+            from reseek_tpu.io.reader import iter_chains
+            for i, mu in enumerate(_mu_letters(
+                    c for c in iter_chains(db) if len(c) > 0)):
+                n_targets = i + 1
+                yield i, mu
+        else:
+            n_targets = len(db)
+            enc = iter(list(_mu_letters(
+                c for c in db if not isinstance(c, EncodedChain))))
+            for i, c in enumerate(db):
+                yield i, (c.mu_letters if isinstance(c, EncodedChain)
+                          else next(enc))
+
+    pf = prefilter_search([ec.mu_letters for ec in q_ecs],
+                          target_mu_stream(), mode=prefilter_mode)
+    t_pf = time.perf_counter()
+    drv = SearchDriver(sens, options, out)
+    drv.query_count = len(q_ecs)
+    t2q = pf.target_to_queries()
+    tidxs = sorted(t2q)
+
+    def survivor_chains():
+        """(target index, chain) of the survivors, ascending."""
+        if db_is_path and db.lower().endswith(".bca"):
+            # random access by index, like PostMuFilter's
+            # BCAData::ReadChain (src/postmufilter.cpp:164)
+            from reseek_tpu.io.bca import BCAReader
+            with BCAReader(db) as r:
+                for tidx in tidxs:
+                    yield tidx, r.read_chain(tidx)
+        elif db_is_path:
+            # formats without random access: one more sequential pass
+            from reseek_tpu.io.reader import iter_chains
+            want = set(tidxs)
+            idx = 0
+            for c in iter_chains(db):
+                if len(c) == 0:
+                    continue
+                if idx in want:
+                    yield idx, c
+                idx += 1
+        else:
+            for tidx in tidxs:
+                yield tidx, db[tidx]
+
+    n_cand = sum(len(v) for v in t2q.values())
+    if engine == "auto":
+        min_dev = int(os.environ.get("RESEEK_FAST_DEVICE_MIN", "20000"))
+        engine = ("device" if torch.cuda.is_available() and n_cand >= min_dev
+                  else "host")
+        dev = resolve(device) if engine == "device" else None
+    stats: Dict[str, float] = {"candidates": n_cand,
+                               "targets_read": len(tidxs)}
+    if engine == "device":
+        _fast_align_device(drv, q_ecs, survivor_chains(), t2q, sens,
+                           options, dev, stats)
+    else:
+        host_driver._fast_align_host(drv, q_ecs, survivor_chains(), t2q,
+                                     sens)
+    drv.processed_pairs = len(q_ecs) * n_targets
+    drv.fast_stats = {"engine": engine, "prefilter_s": t_pf - t0,
+                      "align_s": time.perf_counter() - t_pf, **stats}
+    return drv
+
+
+def _fast_align_device(drv: SearchDriver, q_ecs: List[EncodedChain],
+                       survivor_iter, t2q, sens: DSSParams,
+                       options: SearchOptions, device: torch.device,
+                       stats: Dict[str, float]) -> None:
+    """Stage 2 of the -fast pipeline on the port's engine (PostMuFilter's
+    parallel ChainBag scan as device batches): the surviving targets run
+    in chunks of $RESEEK_FAST_CHUNK (4096); per chunk, one engine over
+    queries + chunk targets runs the Mu filter on the candidate pairs
+    (query side = A, PostMuFilter's orientation), then align_survivors;
+    self-rev and long (MKF) pairs on the host pool.  Rows come out as on
+    the host path: per target ascending, its listed queries in order."""
+    chunk_size = int(os.environ.get("RESEEK_FAST_CHUNK", "4096"))
+    nq = len(q_ecs)
+    need_all = _need_all(options)
+    stats.update(mu_pairs=0, survivors=0, mkf_pairs=0, chunks=0)
+    pool = _pool()
+    try:
+        sr_futs = {i: pool.submit(self_rev_score, q_ecs[i], sens)
+                   for i, ec in enumerate(q_ecs)
+                   if ec.self_rev_score == FLT_MAX}
+        for i, f in sr_futs.items():
+            q_ecs[i].self_rev_score = f.result()
+
+        # chunk N+1's target encode overlaps chunk N's device stages
+        def encode_chunk():
+            chunk = list(itertools.islice(survivor_iter, chunk_size))
+            if not chunk:
+                return None
+            return ([tidx for tidx, _ in chunk],
+                    _encode_all([c for _, c in chunk], sens,
+                                with_self_rev=False))
+
+        pending = pool.submit(encode_chunk)
+        while True:
+            got = pending.result()
+            if got is None:
+                break
+            pending = pool.submit(encode_chunk)
+            t_order, t_ecs = got
+            tpos = {tidx: k for k, tidx in enumerate(t_order)}
+            ecs = list(q_ecs) + list(t_ecs)
+            pipe = DeviceSelfSearch(ecs, sens, device=device,
+                                    with_rev_profiles=False)
+            lens = np.array([len(ec) for ec in ecs])
+            pairs = np.array([(qi, nq + tpos[tidx])
+                              for tidx in t_order for qi in t2q[tidx]],
+                             np.int64).reshape(-1, 2)
+            is_long = ((lens[pairs[:, 0]] >= sens.mkfl)
+                       | (lens[pairs[:, 1]] >= sens.mkfl))
+            sr_futs = {i: pool.submit(self_rev_score, ecs[i], sens)
+                       for i, ec in enumerate(ecs)
+                       if ec.self_rev_score == FLT_MAX}
+            dev_pairs = pairs[~is_long]
+            stats["mu_pairs"] += len(dev_pairs)
+            stats["mkf_pairs"] += int(is_long.sum())
+            mu_vals = {}
+            if sens.omega > 0 and len(dev_pairs):
+                mu = pipe.stage1_scores(dev_pairs)
+                if "muscore" in options.columns:
+                    mu_vals = {(int(a), int(b)): float(v)
+                               for (a, b), v in zip(dev_pairs, mu)}
+                dev_pairs = dev_pairs[mu >= sens.omega]
+            stats["survivors"] += len(dev_pairs)
+            for i, f in sr_futs.items():
+                ecs[i].self_rev_score = f.result()
+            mkf_futs = [(int(a), int(b),
+                         pool.submit(drv.aligner.align, ecs[a], ecs[b]))
+                        for a, b in pairs[is_long]]
+            by_pair = pipe.align_survivors(
+                dev_pairs, need_all_paths=need_all,
+                evalue_gate=None if need_all else options.max_evalue,
+                fwd_displayed=_fwd_displayed(options))
+            _add_stats(stats, pipe)
+            stats["chunks"] += 1
+            for a, b, f in mkf_futs:
+                res = f.result()
+                if res is not None and res.path:
+                    by_pair[(a, b)] = res
+            for key, v in mu_vals.items():
+                if key in by_pair:
+                    by_pair[key].mu_score = v
+            for tidx in t_order:
+                t_ec = t_ecs[tpos[tidx]]
+                for qi in t2q[tidx]:
+                    res = by_pair.get((qi, nq + tpos[tidx]))
+                    if res is not None and res.path:
+                        drv.emit(res, q_ecs[qi], t_ec, True)
+    finally:
+        pool.shutdown(wait=True)

@@ -1,6 +1,7 @@
-"""All-vs-all self-search on the device, counterpart of
+"""Device search engine, counterpart of
 ``reseek_tpu.search.engine.DeviceSelfSearch`` (the sorted-DB rectangular
-pipeline).
+pipeline), for the all-vs-all self-search and, on explicit pair lists,
+query-vs-DB and the -fast pipeline's stage 2.
 
   - chains are sorted by length once, so each length bucket is a
     contiguous index range and stage-1 pair blocks are generated on the
@@ -8,7 +9,12 @@ pipeline).
   - stage 1 (Mu filter, src/dssaligner.cpp:619-630 with the parasail
     saturation of src/parasail_mu.cpp:135-139): fwd and rev Mu SW in one
     kernel launch per block (ops/sw_sweep.py), then Omega gating; the pass
-    mask comes back as bools;
+    mask comes back as bools.  ``stage1_scores`` gives the filter value of
+    explicit pairs instead;
+  - stage 2, score only (``stage2_scores``): the profile substitution
+    tensor of each pair swept by the float row sweep, or by the bit-exact
+    wavefront (``exact``, e.g. the self-reversal scores against reversed
+    profiles); it serves the optional prepasses of ``align_survivors``;
   - stage 3 on the survivors: profile substitution tensor (gather-sum),
     SW with traceback (ops/sw_wavefront.py), the backward walk, the
     aligned-column coordinate gather and LDDT (ops/postalign.py); the
@@ -24,7 +30,9 @@ results.
 
 from __future__ import annotations
 
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -33,11 +41,13 @@ import torch
 from reseek_tpu.align.pipeline import (AlignResult, EncodedChain,
                                        _path_positions)
 from reseek_tpu.constants import DSSParams, StatSig
+from reseek_tpu.encoder.dss import encode_chain
 from reseek_tpu.ops.lddt import lddt_mu_fast
 from reseek_tpu.search.engine import (MU_SAT_LIMIT, MU_SAT_REV_SCORE,
                                       MU_SAT_SCORE, PAD_BYTE, STAGE1_CELLS,
-                                      STAGE3_CELLS, _PATH_CHARS,
-                                      _batch_shape, _edges_for,
+                                      STAGE2_CELLS, STAGE2_GUARD,
+                                      STAGE3_CELLS, _E_PREPASS_MIN,
+                                      _PATH_CHARS, _batch_shape, _edges_for,
                                       _exact_fwd_score, _rect_edges,
                                       _vector_stats)
 from reseek_tpu_torch.device import DeviceLike, resolve
@@ -45,8 +55,8 @@ from reseek_tpu_torch.ops.postalign import (PD, PI, PM, lddt_batch,
                                             walk_traceback_batch)
 from reseek_tpu_torch.ops.smx import (flat_layout, mu_table, profile_codes,
                                       profile_smx)
-from reseek_tpu_torch.ops.sw_sweep import mu_sw_scores
-from reseek_tpu_torch.ops.sw_wavefront import sw_traceback
+from reseek_tpu_torch.ops.sw_sweep import mu_sw_scores, sw_score_sweep
+from reseek_tpu_torch.ops.sw_wavefront import sw_score, sw_traceback
 
 
 def _f32(x: float) -> float:
@@ -85,11 +95,15 @@ def aligned_coords(path_rev: torch.Tensor, bi: torch.Tensor,
 
 
 class DeviceSelfSearch:
-    """All-vs-all self search of the pairs below the MKF routing threshold
-    (src/runself.cpp + src/dssaligner.cpp), on ``device``."""
+    """Search of the pairs below the MKF routing threshold (src/runself.cpp
+    + src/dssaligner.cpp), on ``device``: all-vs-all, or given pairs.
+
+    with_rev_profiles: encode and upload the reversed chains' profiles
+    (``build_rev_profiles``), which the self-reversal scores need."""
 
     def __init__(self, ecs: List[EncodedChain], params: DSSParams,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 with_rev_profiles: bool = True):
         lens = np.array([len(ec) for ec in ecs], np.int64)
         order = np.argsort(lens, kind="stable")
         edges = _edges_for(params, int(lens.max()) if len(lens) else 1)
@@ -108,6 +122,8 @@ class DeviceSelfSearch:
             coords[s, :ln] = ec.chain.coords[:ln]
         self._setup(ecs, params, device, order, edges, prof, mu, mu_rev,
                     coords, w, offsets, mu_table())
+        if with_rev_profiles:
+            self.build_rev_profiles()
 
     @classmethod
     def from_arrays(cls, ecs: List[EncodedChain], params: DSSParams,
@@ -158,9 +174,35 @@ class DeviceSelfSearch:
         self.offsets = put(offsets, torch.int64)
         self.mumx = put(mumx, torch.float32)
         self.pad_code = int(self.w.shape[0]) - 1
-        # host-clock walls of the last stage1_survivors / align_survivors,
-        # each read after the device has finished (see _clock)
+        self.prof_rev: Optional[torch.Tensor] = None
+        # host-clock walls of the last stage-1 call, stage-2 prepass and
+        # align_survivors, each read after the device has finished (see
+        # _clock)
         self.seconds: Dict[str, float] = {}
+
+    def build_rev_profiles(self) -> None:
+        """Encode the reversed chains below mkfl on a host thread pool and
+        upload their profiles, in the sorted layout (for the self-reversal
+        scores; longer chains take the host MKF path)."""
+        if self.prof_rev is not None:
+            return
+        p = self.params
+        n, nf, L = len(self.ecs), len(p.features), self.edges[-1]
+        prof_rev = np.full((n, nf, L), PAD_BYTE, np.uint8)
+
+        def rev_one(s_oi):
+            s, oi = s_oi
+            ec = self.ecs[oi]
+            if len(ec) >= p.mkfl:
+                return
+            ln = min(len(ec), L)
+            prof_rev[s, :, :ln] = encode_chain(
+                ec.chain.reversed()).profile(p)[:, :ln]
+
+        # the native encoder releases the GIL
+        with ThreadPoolExecutor(max_workers=os.cpu_count() or 2) as tp:
+            list(tp.map(rev_one, enumerate(self.order)))
+        self.prof_rev = torch.tensor(prof_rev, device=self.device)
 
     def _clock(self) -> float:
         """Host clock after the device's queued work has finished."""
@@ -290,6 +332,128 @@ class DeviceSelfSearch:
         out = np.stack([np.minimum(oi, oj), np.maximum(oi, oj)], axis=1)
         return out[np.lexsort((out[:, 1], out[:, 0]))]
 
+    def _edge_of(self, lv: np.ndarray) -> np.ndarray:
+        """Bucket edge of each length (the last edge caps it)."""
+        edges = np.asarray(self.edges)
+        return edges[np.minimum(np.searchsorted(edges, lv), len(edges) - 1)]
+
+    def _sorted_idx(self, orig: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(self.sorted_of[orig], device=self.device)
+
+    # -- stage 1 on explicit pairs: Mu filter values ---------------------
+    def stage1_scores(self, pairs_orig: np.ndarray) -> np.ndarray:
+        """Mu filter value per (i, j) original-index pair: 0 if fwd <
+        OmegaFwd else fwd - rev, with parasail saturation semantics
+        (src/parasail_mu.cpp:120-161); rev reverses the A side.
+        Integer-exact: equals the host mu_filter_score bit for bit.  For
+        drivers that bring their own pair lists (query-vs-DB, the -fast
+        stage 2).  Rectangular edges as in stage 3; fwd and rev pairs run
+        as one [2B] kernel batch."""
+        t0 = self._clock()
+        p = self.params
+        out = np.zeros(len(pairs_orig), np.float32)
+        if len(pairs_orig) == 0:
+            return out
+        o, e = -float(p.para_mu_gap_open), -float(p.para_mu_gap_ext)
+        ra, rb = _rect_edges(self._edge_of(self.lens[pairs_orig[:, 0]]),
+                             self._edge_of(self.lens[pairs_orig[:, 1]]))
+        keys = ra.astype(np.int64) * (1 << 20) + rb
+        jobs = []
+        for key in sorted({int(x) for x in keys}):
+            lea, leb = key >> 20, key & ((1 << 20) - 1)
+            rows = np.flatnonzero(keys == key)
+            bs = _batch_shape(len(rows), lea, STAGE1_CELLS // 2, le_b=leb)
+            for kk in range(0, len(rows), bs):
+                rr = rows[kk: kk + bs]
+                ia = self._sorted_idx(pairs_orig[rr, 0])
+                b = self.mu[self._sorted_idx(pairs_orig[rr, 1]), :leb]
+                both = mu_sw_scores(
+                    torch.cat([self.mu[ia, :lea], self.mu_rev[ia, :lea]]),
+                    torch.cat([b, b]), self.mumx, o, e)
+                jobs.append((rr, both))
+        fetched = torch.cat([both for _, both in jobs]).cpu().numpy()
+        pos = 0
+        for rr, _ in jobs:
+            n = len(rr)
+            fwd = fetched[pos: pos + n].copy()
+            rev = fetched[pos + n: pos + 2 * n].copy()
+            pos += 2 * n
+            # parasail 8-bit saturation (align/pipeline.py MU_SAT_* notes)
+            fwd[fwd > MU_SAT_LIMIT] = MU_SAT_SCORE
+            rev[rev > MU_SAT_LIMIT] = MU_SAT_REV_SCORE
+            val = fwd - rev
+            val[fwd < np.float32(p.omega_fwd)] = 0.0
+            out[rr] = val
+        self.seconds["stage1"] = self._clock() - t0
+        return out
+
+    # -- stage 2: score-only full-profile SW -----------------------------
+    def stage2_plan(self, pairs_orig: np.ndarray):
+        """Stage-2 chunks of (i, j) original-index pairs: [(le, rows of
+        pairs_orig [n], ia [n], ib [n] sorted-index tensors)].  Pairs are
+        grouped by the square of their larger edge, at most STAGE2_CELLS
+        DP cells per chunk."""
+        be = self._edge_of(np.maximum(self.lens[pairs_orig[:, 0]],
+                                      self.lens[pairs_orig[:, 1]]))
+        plan = []
+        for le in sorted({int(x) for x in be}):
+            rows = np.flatnonzero(be == le)
+            bs = _batch_shape(len(rows), le, STAGE2_CELLS)
+            for kk in range(0, len(rows), bs):
+                rr = rows[kk: kk + bs]
+                plan.append((le, rr, self._sorted_idx(pairs_orig[rr, 0]),
+                             self._sorted_idx(pairs_orig[rr, 1])))
+        return plan
+
+    def stage2_scores(self, pairs_orig: np.ndarray, b_side_rev: bool = False,
+                      exact: bool = False) -> np.ndarray:
+        """Full-profile SW scores of (i, j) original-index pairs.
+
+        By default the float row sweep (ops/sw_sweep.sw_score_sweep),
+        whose rounding differs from the reference by up to ~1e-3: gate
+        with STAGE2_GUARD.  exact=True runs the bit-exact wavefront score
+        (ops/sw_wavefront.sw_score), for scores that are reported, such as
+        the self-reversal scores.  b_side_rev scores against the reversed
+        chains' profiles."""
+        t0 = self._clock()
+        p = self.params
+        out = np.zeros(len(pairs_orig), np.float32)
+        if len(pairs_orig) == 0:
+            return out
+        if b_side_rev:
+            self.build_rev_profiles()
+        prof_b = self.prof_rev if b_side_rev else self.prof
+        score = sw_score if exact else sw_score_sweep
+        jobs = []
+        for le, rr, ia, ib in self.stage2_plan(pairs_orig):
+            s = self.stage3_smx(le, le, ia, ib, prof_b)
+            jobs.append((rr, score(s, float(p.gap_open), float(p.gap_ext))))
+            del s
+        fetched = torch.cat([sc for _, sc in jobs]).cpu().numpy()
+        pos = 0
+        for rr, _ in jobs:
+            out[rr] = fetched[pos: pos + len(rr)]
+            pos += len(rr)
+        self.seconds["stage2"] = self._clock() - t0
+        return out
+
+    # -- self-reversal scores (src/alignpair.cpp:7-25), device part ------
+    def self_rev_scores_device(self) -> np.ndarray:
+        """Self-reversal scores of the chains below mkfl (others take the
+        host MKF quirk path), indexed by ORIGINAL chain index, NaN where
+        not computed here: each chain against its reversed profile on the
+        bit-exact stage-2 score."""
+        out = np.full(len(self.ecs), np.nan, np.float32)
+        idx = []
+        for _bi, s0, s1 in self._device_ranges():
+            idx.extend(self.order[s0:s1].tolist())
+        if not idx:
+            return out
+        pairs = np.stack([np.asarray(idx)] * 2, axis=1)
+        out[np.asarray(idx)] = self.stage2_scores(pairs, b_side_rev=True,
+                                                  exact=True)
+        return out
+
     # -- stage 3: align + LDDT on survivors ------------------------------
     def stage3_plan(self, pairs_orig: np.ndarray):
         """Stage-3 chunks of (i, j) original-index pairs: [(lea, leb,
@@ -297,14 +461,8 @@ class DeviceSelfSearch:
         shape is rectangular (A edge x B edge) when the edges differ >= 2x,
         else the larger edge's square; chunks hold at most STAGE3_CELLS
         DP cells."""
-        edges = np.asarray(self.edges)
-
-        def eof(lv):
-            return edges[np.minimum(np.searchsorted(edges, lv),
-                                    len(edges) - 1)]
-
-        ra, rb = _rect_edges(eof(self.lens[pairs_orig[:, 0]]),
-                             eof(self.lens[pairs_orig[:, 1]]))
+        ra, rb = _rect_edges(self._edge_of(self.lens[pairs_orig[:, 0]]),
+                             self._edge_of(self.lens[pairs_orig[:, 1]]))
         keys = ra.astype(np.int64) * (1 << 20) + rb
         plan = []
         for key in sorted({int(x) for x in keys}):
@@ -313,20 +471,19 @@ class DeviceSelfSearch:
             bs = _batch_shape(len(rows), lea, STAGE3_CELLS, le_b=leb)
             for kk in range(0, len(rows), bs):
                 chunk = pairs_orig[rows[kk: kk + bs]]
-                plan.append((lea, leb, chunk,
-                             torch.as_tensor(self.sorted_of[chunk[:, 0]],
-                                             device=self.device),
-                             torch.as_tensor(self.sorted_of[chunk[:, 1]],
-                                             device=self.device)))
+                plan.append((lea, leb, chunk, self._sorted_idx(chunk[:, 0]),
+                             self._sorted_idx(chunk[:, 1])))
         return plan
 
     def stage3_smx(self, lea: int, leb: int, ia: torch.Tensor,
-                   ib: torch.Tensor) -> torch.Tensor:
+                   ib: torch.Tensor,
+                   prof_b: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Profile substitution tensor [n, lea, leb] of sorted-index pairs
-        (ia, ib)."""
+        (ia, ib); the B side from ``prof_b`` (default: the profiles)."""
+        prof_b = self.prof if prof_b is None else prof_b
         ca = profile_codes(self.prof[ia, :, :lea], self.offsets,
                            self.pad_code)
-        cb = profile_codes(self.prof[ib, :, :leb], self.offsets,
+        cb = profile_codes(prof_b[ib, :, :leb], self.offsets,
                            self.pad_code)
         return profile_smx(ca, cb, self.w)
 
@@ -349,18 +506,64 @@ class DeviceSelfSearch:
                 "hi_b": bj, "plen": plen, "lddt": lddt, "n_m": n_m,
                 "risky": risky, "path_rev": path_rev}
 
+    def _prepass(self, pairs_orig: np.ndarray, need_all_paths: bool,
+                 fwd_prefilter: bool,
+                 evalue_gate: Optional[float]) -> np.ndarray:
+        """The pairs that the score-only stage-2 prepasses keep.
+
+        fwd_prefilter: drop pairs whose sweep score + STAGE2_GUARD cannot
+        reach MinFwdScore (src/dssaligner.cpp:852-860: such pairs get no
+        E-value, so the E-gate rejects their rows).  The E-bound prepass
+        (on at RESEEK_E_PREPASS_MIN survivors, off by default): TS rises
+        with both fwd and LDDT, so stats at (sweep score + STAGE2_GUARD,
+        LDDT = 1) bound each pair's E-value from below; pairs whose bound
+        exceeds the emit gate cannot emit a row.  Both are off when every
+        path is needed (E-gate off)."""
+        p = self.params
+        if need_all_paths:
+            return pairs_orig
+        if fwd_prefilter and p.min_fwd_score > 0 and len(pairs_orig):
+            pre = self.stage2_scores(pairs_orig)
+            pairs_orig = pairs_orig[
+                pre >= np.float32(p.min_fwd_score) - STAGE2_GUARD]
+        epm = _E_PREPASS_MIN()
+        if (evalue_gate is not None and epm > 0
+                and len(pairs_orig) >= epm):
+            pre = self.stage2_scores(pairs_orig)
+            sa = np.array([self.ecs[i].self_rev_score
+                           for i in pairs_orig[:, 0]], np.float32)
+            sb = np.array([self.ecs[j].self_rev_score
+                           for j in pairs_orig[:, 1]], np.float32)
+            _, _, ev_min = _vector_stats(
+                pre + STAGE2_GUARD, np.ones(len(pre), np.float32), sa, sb,
+                self.lens[pairs_orig[:, 0]], self.lens[pairs_orig[:, 1]])
+            # the relative margin covers float32 wobble in the stats
+            pairs_orig = pairs_orig[
+                ev_min <= np.float32(evalue_gate) * np.float32(1.0001)]
+        return pairs_orig
+
     def align_survivors(self, pairs_orig: np.ndarray,
+                        need_all_paths: bool = False,
+                        fwd_prefilter: bool = False,
                         evalue_gate: Optional[float] = None,
                         fwd_displayed: bool = True
                         ) -> Dict[Tuple[int, int], AlignResult]:
         """Full alignment of (i, j) original-index pairs.  Returns
         {(i, j): AlignResult} for the alignments with a path.
 
-        evalue_gate: the caller's emit gate; pairs whose best-case E-value
-        exceeds it skip the host finish.  fwd_displayed: whether the raw
-        forward score is displayed (dpscore/raw columns), which adds its
-        display boundaries to the exact-recompute checks."""
+        need_all_paths: the E-gate is off, so every path is needed and the
+        prepasses are skipped.  fwd_prefilter: drop pairs that cannot
+        reach MinFwdScore first (see ``_prepass``, which also runs the
+        opt-in E-bound prepass).  evalue_gate: the caller's emit gate;
+        pairs whose best-case E-value exceeds it skip the host finish.
+        fwd_displayed: whether the raw forward score is displayed
+        (dpscore/raw columns), which adds its display boundaries to the
+        exact-recompute checks."""
         results: Dict[Tuple[int, int], AlignResult] = {}
+        if len(pairs_orig) == 0:
+            return results
+        pairs_orig = self._prepass(pairs_orig, need_all_paths, fwd_prefilter,
+                                   evalue_gate)
         if len(pairs_orig) == 0:
             return results
         t0 = self._clock()

@@ -81,8 +81,10 @@ def test_verysensitive_matches_host():
 
 def test_runs_with_jax_blocked(tmp_path):
     """Every module of the port imports with jax blocked, and the CLI's
-    device engine on the CPU writes the host engine's TSV."""
+    device engine on the CPU writes the host engine's TSV, for the
+    self-search and for a --db search."""
     out = tmp_path / "hits.tsv"
+    qout = tmp_path / "query.tsv"
     code = f"""
 import sys, pkgutil, importlib
 sys.modules["jax"] = None
@@ -95,9 +97,14 @@ chains = read_chains({Q100!r})[:8]
 with open({str(tmp_path / "q8.cal")!r}, "w") as f:
     write_cal(chains, f)
 from reseek_tpu_torch.__main__ import main
-sys.exit(main(["search", {str(tmp_path / "q8.cal")!r}, "--sensitive",
-               "-o", {str(out)!r}, "--columns", {COLUMNS!r},
-               "--engine", "device", "--device", "cpu"]))
+common = ["--sensitive", "--columns", {COLUMNS!r}, "--engine", "device",
+          "--device", "cpu"]
+rc = main(["search", {str(tmp_path / "q8.cal")!r}, "-o", {str(out)!r}]
+          + common)
+rc = rc or main(["search", {str(tmp_path / "q8.cal")!r}, "--db",
+                 {str(tmp_path / "q8.cal")!r}, "-o", {str(qout)!r}] + common)
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+sys.exit(rc)
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
@@ -107,12 +114,20 @@ sys.exit(main(["search", {str(tmp_path / "q8.cal")!r}, "--sensitive",
     chains = read_chains(str(tmp_path / "q8.cal"))
     host, _ = _search(tpu_driver.self_search, chains, engine="host")
     assert out.read_text() == host and host
+    qhost = io.StringIO()
+    tpu_driver.query_search(chains, chains, DSSParams.create("sensitive"),
+                            SearchOptions(columns=parse_columns(COLUMNS),
+                                          mode="sensitive"), qhost,
+                            engine="host")
+    assert qout.read_text() == qhost.getvalue() and qhost.getvalue()
 
 
 def test_cli_refuses_unported_flags(tmp_path):
+    """The multi-host flags are not ported yet."""
     proc = subprocess.run(
         [sys.executable, "-m", "reseek_tpu_torch", "search", Q100,
-         "--sensitive", "--db", Q100, "-o", str(tmp_path / "x.tsv")],
+         "--fast", "--db", Q100, "--nprocs", "2", "-o",
+         str(tmp_path / "x.tsv")],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert "not ported yet" in proc.stderr
@@ -134,15 +149,32 @@ def test_cuda_without_a_card_raises(subset):
 
 
 def test_unported_options_raise(subset):
+    """A device mesh (multi-GPU) is not ported yet."""
     params = DSSParams.create("sensitive")
-    options = SearchOptions(columns=["query"], global_aln=True)
-    with pytest.raises(NotImplementedError):
-        torch_driver.self_search(subset[:2], params, options, io.StringIO(),
-                                 engine="device", device="cpu")
-    with pytest.raises(NotImplementedError):
-        torch_driver.self_search(subset[:2], params,
-                                 SearchOptions(columns=["query"]),
-                                 io.StringIO(), mesh=object())
+    opts = SearchOptions(columns=["query"])
+    for fn, args in ((torch_driver.self_search, (subset[:2],)),
+                     (torch_driver.query_search, (subset[:1], subset[:2])),
+                     (torch_driver.fast_search, (subset[:1], subset[:2]))):
+        with pytest.raises(NotImplementedError):
+            fn(*args, params, opts, io.StringIO(), mesh=object())
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_global_matches_host(engine):
+    """-global runs reseek_tpu's host global path whatever the engine:
+    byte-equal to reseek_tpu on 6 short q100.cal chains."""
+    chains = sorted(read_chains(Q100), key=len)[:6]
+    cols = "query+target+qlo+qhi+tlo+thi+cigar"
+    outs = []
+    for fn, kw in ((torch_driver.self_search,
+                    {"engine": engine, "device": "cpu"}),
+                   (tpu_driver.self_search, {"engine": "host"})):
+        out = io.StringIO()
+        opts = SearchOptions(columns=parse_columns(cols), mode="sensitive",
+                             global_aln=True, scores_are_not_evalues=True)
+        fn(chains, DSSParams.create("sensitive"), opts, out, **kw)
+        outs.append(out.getvalue())
+    assert outs[0] == outs[1] and outs[0].count("\n") >= 6
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
