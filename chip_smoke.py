@@ -34,11 +34,26 @@ Phases, in order; any failure exits non-zero and prints no result:
   7. -fast (prefilter idxq, device stage 2): the 100 q100 queries against
      a 10,240-chain replica written as .cal; the five queries' rows must
      equal reseek_tpu's host fast_search of those queries; 10 queries x
-     q100 byte-identical to the host.
+     q100 byte-identical to the host;
+  8. the mesh (every visible card, or ("cuda:0", "cuda:0") on one): the
+     q100 self-search and query-vs-DB 100 x 1,024 dealt over it, each
+     byte-equal to its one-device run of phases 3 and 6; the 10 x q100
+     query with the E-bound prepass forced on, byte-equal to the host;
+     the device self-rev scores of phase 5's two sets, equal to phase 5's;
+     each kernel's launches per device (every stage-1/3 kernel on every
+     card; the stage-2 kernels on every card their chunks are dealt to),
+     mesh and one-device walls;
+  9. multi-process -fast: the 10,240-chain replica written as .bca, the
+     100 q100 queries through the CLI (--engine device) in one process,
+     then in two Gloo rank processes (--nprocs 2), then the two again
+     with --resume: rank 0's -o must equal the one-process output each
+     time, rank 1 must not create its -o, every rank of the first
+     two-rank run must launch the stage-1/3 kernels and every resumed
+     rank must reuse its rows and launch nothing; the three walls.
 Each kernel must have been launched by the run of the phase that KERNELS
 names for it (counts set to 0 just before that run, read just after);
-the query and -fast runs must launch every stage-1/3 kernel too.  The
-last two lines are a JSON object of per-kernel results and
+the query, -fast and mesh runs must launch every stage-1/3 kernel too.
+The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 
@@ -69,6 +84,7 @@ REPLICA_NOISE = 0.25
 LDDT_TOL = 1e-6
 SWEEP_TOL = 1e-3          # float row sweep vs the exact wavefront score
 QUERY_CHUNK = 512
+RANK_TIMEOUT = 400        # seconds for a run of the CLI's rank processes
 FIVE = [18, 21, 22, 26, 40]
 TEN = list(range(10))
 # kernel -> (CUDA source, the TPU kernel or JAX scan it replaces, the run
@@ -123,24 +139,39 @@ def time_ms(fn, reps: int, warm: int = 1) -> float:
 
 class Launches:
     """Kernel launch counts of one run: ``with Launches() as n: run()``
-    sets every wrapper's count to 0 on entry and leaves {kernel: count}
-    in ``n.counts`` on exit."""
+    sets every wrapper's counts to 0 on entry and leaves {kernel: count}
+    in ``n.counts`` and {kernel: {device: count}} in ``n.by_device`` on
+    exit."""
 
     def __enter__(self):
         from reseek_tpu_torch.ops import kernel_wrappers
         self.wrappers = kernel_wrappers()
         for w in self.wrappers.values():
             w.launches = 0
+            w.by_device.clear()
         return self
 
     def __exit__(self, *exc):
         self.counts = {k: w.launches for k, w in self.wrappers.items()}
+        self.by_device = {k: dict(w.by_device)
+                          for k, w in self.wrappers.items()}
         return False
 
     def require(self, names, what: str) -> None:
         for k in names:
             if self.counts[k] <= 0:
                 fail(f"kernel {k} was not launched by {what}")
+
+    def require_devices(self, devices, what: str, names=None) -> None:
+        """Fail unless every one of ``devices`` had a launch of each kernel
+        in ``names`` (of any kernel when None)."""
+        per = ([self.by_device[k] for k in names] if names is not None
+               else [{d: sum(n.get(d, 0) for n in self.by_device.values())
+                      for d in devices}])
+        idle = sorted({d for n in per for d in devices if not n.get(d)})
+        if idle:
+            fail(f"{what} launched {'no kernel' if names is None else names}"
+                 f" on {idle}")
 
 
 def _band(dp: int, la: int, lb: int, device) -> torch.Tensor:
@@ -366,7 +397,7 @@ def options(columns: str = COLUMNS, mode: str = MODE):
     return SearchOptions(columns=parse_columns(columns), mode=mode)
 
 
-def run_search(chains, engine: str):
+def run_search(chains, engine: str, mesh=None):
     from reseek_tpu.constants import DSSParams
     out = io.StringIO()
     params = DSSParams.create(MODE)
@@ -377,12 +408,13 @@ def run_search(chains, engine: str):
     else:
         from reseek_tpu_torch.search.driver import self_search
         drv = self_search(chains, params, options(), out, engine="device",
-                          device=DEVICE)
+                          device=DEVICE, mesh=mesh)
         torch.cuda.synchronize()
     return out.getvalue(), time.perf_counter() - t0, drv
 
 
-def phase_q100(chains) -> dict:
+def phase_q100(chains):
+    """Returns (launch counts, the TSV, warm median wall)."""
     n = len(chains)
     pairs = n * (n + 1) // 2
     want, host_s, _ = run_search(chains, "host")
@@ -408,7 +440,7 @@ def phase_q100(chains) -> dict:
     print(f"[3] warm median {med:.3f} s ({warm}), {pairs / med:.1f} pairs/s "
           f"over {pairs} pairs; stages {json.dumps(st)}; peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    return launched.counts
+    return launched.counts, want, med
 
 
 def replica(base, n: int):
@@ -444,14 +476,16 @@ def phase_replica(chains) -> None:
           f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
 
-def phase_self_rev(sets) -> dict:
-    """Device self-reversal scores against the host's, per chain set."""
+def phase_self_rev(sets):
+    """Device self-reversal scores against the host's, per chain set.
+    Returns (the last set's launch counts, [(set name, chains, device
+    scores, sw_score launches)])."""
     from reseek_tpu.align.pipeline import self_rev_score
     from reseek_tpu.constants import DSSParams
     from reseek_tpu.search.driver import _encode_all
     from reseek_tpu_torch.search.engine import DeviceSelfSearch
     params = DSSParams.create(MODE)
-    counts = {}
+    counts, scores = {}, []
     for name, chains in sets:
         ecs = _encode_all(chains, params, with_self_rev=False)
         t0 = time.perf_counter()
@@ -475,7 +509,8 @@ def phase_self_rev(sets) -> dict:
               f"{secs:.2f} s, host scores {time.perf_counter() - t2:.2f} s; "
               f"launches {launched.counts}")
         counts = launched.counts
-    return counts
+        scores.append((name, chains, got, counts["sw_score"]))
+    return counts, scores
 
 
 def _rows_of(text: str, labels, col: int = 0) -> str:
@@ -485,22 +520,25 @@ def _rows_of(text: str, labels, col: int = 0) -> str:
                    if line.split("\t")[col] in keep)
 
 
-def phase_query(q100, db) -> dict:
+def run_query(fn, queries, targets, **kw):
+    """(TSV, wall, driver) of a sensitive query-vs-DB run of ``fn``."""
     from reseek_tpu.constants import DSSParams
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    drv = fn(queries, targets, DSSParams.create(MODE), options(), out, **kw)
+    return out.getvalue(), time.perf_counter() - t0, drv
+
+
+def phase_query(q100, db):
+    """Returns (the E-prepass run's launch counts, the 100 x DB TSV, its
+    wall, the host's 10 x q100 TSV)."""
     from reseek_tpu.search import driver as host
     from reseek_tpu_torch.search import driver as port
-    params = DSSParams.create(MODE)
-
-    def run(fn, queries, targets, **kw):
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        drv = fn(queries, targets, params, options(), out, **kw)
-        return out.getvalue(), time.perf_counter() - t0, drv
-
     dev = {"engine": "device", "device": DEVICE}
     with Launches() as launched:
-        got, secs, drv = run(port.query_search, q100, db,
-                             chunk_size=QUERY_CHUNK, **dev)
+        got, secs, drv = run_query(port.query_search, q100, db,
+                                   chunk_size=QUERY_CHUNK, **dev)
+    full_text, full_s = got, secs
     launched.require(SEARCH_KERNELS, "the query-vs-DB search")
     pairs = len(q100) * len(db)
     print(f"[6] query-vs-DB {len(q100)} x {len(db)}: {secs:.2f} s, "
@@ -508,18 +546,19 @@ def phase_query(q100, db) -> dict:
           f"{len(got.splitlines())} rows; {json.dumps(drv.device_stats)}; "
           f"launches {launched.counts}")
     five = [q100[i] for i in FIVE]
-    want, host_s, _ = run(host.query_search, five, db, engine="host")
+    want, host_s, _ = run_query(host.query_search, five, db, engine="host")
     if _rows_of(got, [c.label for c in five]) != want or not want:
         fail("query-vs-DB: the five queries' rows differ from the host")
     print(f"[6] the five queries' {len(want.splitlines())} rows equal the "
           f"host's ({host_s:.2f} s on the host)")
     ten = [q100[i] for i in TEN]
-    want, _, _ = run(host.query_search, ten, q100, engine="host")
-    got, _, _ = run(port.query_search, ten, q100, **dev)
+    want, _, _ = run_query(host.query_search, ten, q100, engine="host")
+    got, _, _ = run_query(port.query_search, ten, q100, **dev)
     os.environ["RESEEK_E_PREPASS_MIN"] = "1"
     try:
         with Launches() as prepass:
-            got_pre, _, drv = run(port.query_search, ten, q100, **dev)
+            got_pre, _, drv = run_query(port.query_search, ten, q100,
+                                        **dev)
     finally:
         del os.environ["RESEEK_E_PREPASS_MIN"]
     if got != want or got_pre != want:
@@ -530,7 +569,7 @@ def phase_query(q100, db) -> dict:
           f"also with the E-bound prepass (stage 2 "
           f"{drv.device_stats['stage2_s']:.3f} s); launches "
           f"{prepass.counts}")
-    return prepass.counts
+    return prepass.counts, full_text, full_s, want
 
 
 def phase_fast(q100, db_chains) -> None:
@@ -580,6 +619,192 @@ def phase_fast(q100, db_chains) -> None:
     print(f"[7] 10 x q100: {len(want.splitlines())} rows byte-identical")
 
 
+def mesh_devices():
+    """Every visible card, or two positions on the one card."""
+    n = torch.cuda.device_count()
+    return (tuple(f"cuda:{i}" for i in range(n)) if n > 1
+            else ("cuda:0", "cuda:0"))
+
+
+def phase_mesh(q100, db, ref: dict) -> None:
+    """Phase 8 on the mesh, each run held to its one-device result in
+    ``ref``: "self" and "query" (TSV, wall) of phases 3 and 6, "ten" the
+    10 x q100 TSV, "rev" phase 5's [(name, chains, scores, sw_score
+    launches)]; launches per kernel and device."""
+    from reseek_tpu.constants import DSSParams
+    from reseek_tpu.search.driver import _encode_all
+    from reseek_tpu_torch.search import driver as port
+    from reseek_tpu_torch.search.engine import DeviceSelfSearch
+    mesh = mesh_devices()
+    devices = {str(torch.device(d)) for d in mesh}
+
+    def dealt(n: int) -> set:
+        """The devices that one call dealing ``n`` chunks reaches: chunk k
+        runs on mesh position k mod size."""
+        return {str(torch.device(d)) for d in mesh[:min(len(mesh), n)]}
+
+    print(f"[8] mesh {mesh}")
+    for name, run, (want, single_s) in (
+            ("q100 self-search",
+             lambda: run_search(q100, "device", mesh=mesh), ref["self"]),
+            (f"query-vs-DB {len(q100)} x {len(db)}",
+             lambda: run_query(port.query_search, q100, db, mesh=mesh,
+                               chunk_size=QUERY_CHUNK, engine="device"),
+             ref["query"])):
+        walls = []
+        for _ in range(2):
+            with Launches() as launched:
+                got, secs, drv = run()
+            if got != want:
+                fail(f"mesh {name} differs from the one-device run")
+            walls.append(secs)
+        launched.require(SEARCH_KERNELS, f"the mesh {name}")
+        launched.require_devices(devices, f"the mesh {name}", SEARCH_KERNELS)
+        print(f"[8] mesh {name}: {len(want.splitlines())} rows byte-equal "
+              f"to one device; walls {walls[0]:.3f} s, {walls[1]:.3f} s "
+              f"(one device {single_s:.3f} s); stages "
+              f"{json.dumps(drv.device_stats)}; launches by device "
+              f"{json.dumps(launched.by_device)}")
+
+    ten = [q100[i] for i in TEN]
+    os.environ["RESEEK_E_PREPASS_MIN"] = "1"
+    try:
+        with Launches() as launched:
+            got, _, drv = run_query(port.query_search, ten, q100, mesh=mesh,
+                                    engine="device")
+    finally:
+        del os.environ["RESEEK_E_PREPASS_MIN"]
+    if got != ref["ten"]:
+        fail("mesh 10 x q100 with the E-bound prepass differs from the host")
+    what = "the mesh E-bound prepass"
+    launched.require(SEARCH_KERNELS + ("sw_score_sweep",), what)
+    # its stage-2 call deals the survivors' edge groups (3 chunks at
+    # 10 x q100) from position 0: at least two positions
+    launched.require_devices(dealt(2), what, ["sw_score_sweep"])
+    print(f"[8] mesh 10 x q100 with the E-bound prepass: "
+          f"{len(got.splitlines())} rows byte-identical (stage 2 "
+          f"{drv.device_stats['stage2_s']:.3f} s); launches by device "
+          f"{json.dumps(launched.by_device)}")
+
+    params = DSSParams.create(MODE)
+    for name, chains, want, n in ref["rev"]:
+        pipe = DeviceSelfSearch(_encode_all(chains, params,
+                                            with_self_rev=False), params,
+                                mesh=mesh)
+        with Launches() as launched:
+            got = pipe.self_rev_scores_device()
+        if not np.array_equal(got, want, equal_nan=True):
+            bad = int((~((got == want) | (np.isnan(got) & np.isnan(want))))
+                      .sum())
+            fail(f"mesh {name} self-rev: {bad} chains differ from one device")
+        launched.require_devices(dealt(n), f"the mesh {name} self-rev",
+                                 ["sw_score"])
+        print(f"[8] mesh {name} self-rev: {int((~np.isnan(got)).sum())} "
+              f"scores equal to one device; launches by device "
+              f"{json.dumps(launched.by_device['sw_score'])}")
+        del pipe
+
+
+def _cli_ranks(args_of, nprocs: int, env, logdir: str) -> tuple:
+    """Run ``nprocs`` processes of the port's CLI (``args_of(rank)``), all
+    started together, their output to files in ``logdir``; fail unless
+    every one exits 0 within RANK_TIMEOUT.  Returns (wall, [the JSON
+    stats each rank printed, or None])."""
+    logs = [os.path.join(logdir, f"rank{r}.log") for r in range(nprocs)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for r in range(nprocs):
+            with open(logs[r], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "reseek_tpu_torch", "search",
+                     *args_of(r)], cwd=ROOT, env=env, stdout=log,
+                    stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(1.0, RANK_TIMEOUT - (time.perf_counter()
+                                                    - t0)))
+    except subprocess.TimeoutExpired:
+        fail(f"a rank ran past {RANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    stats = []
+    for r, p in enumerate(procs):
+        with open(logs[r]) as f:
+            err = f.read()
+        if p.returncode != 0:
+            fail(f"rank {r} of {nprocs} exited {p.returncode}:\n{err[-4000:]}")
+        mark = f"reseek_tpu_torch: rank {r}: "
+        lines = [ln for ln in err.splitlines() if ln.startswith(mark)]
+        stats.append(json.loads(lines[-1][len(mark):]) if lines else None)
+    return wall, stats
+
+
+def phase_multiprocess(db_chains) -> None:
+    """-fast over two rank processes of the CLI (Gloo, one card shared
+    when there is one): rank 0's -o equals the one-process command's on
+    the same .bca, and again when both ranks resume from their rows."""
+    from reseek_tpu.io.bca import BCAWriter
+    env = dict(os.environ, PYTHONPATH=ROOT, GLOO_SOCKET_IFNAME="lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, f"replica{len(db_chains)}.bca")
+        t0 = time.perf_counter()
+        with BCAWriter(db) as w:
+            for c in db_chains:
+                w.write_chain(c)
+        print(f"[9] wrote {len(db_chains)} chains as .bca in "
+              f"{time.perf_counter() - t0:.2f} s")
+        common = [Q100, "--fast", "--db", db, "--columns", COLUMNS,
+                  "--engine", "device", "--device", DEVICE]
+        one_fn = os.path.join(tmp, "one.tsv")
+        one_s, _ = _cli_ranks(lambda r: common + ["-o", one_fn], 1, env,
+                              tmp)
+        with open(one_fn) as f:
+            want = f.read()
+        if not want:
+            fail("-fast one process: no rows")
+        print(f"[9] one process: {one_s:.2f} s, {len(want.splitlines())} "
+              "rows")
+        scratch = os.path.join(tmp, "scratch")
+        os.mkdir(scratch)
+        for run, extra in (("two ranks", []), ("resumed", ["--resume"])):
+            coord = f"localhost:{_free_port()}"
+            secs, stats = _cli_ranks(lambda r: common + [
+                "-o", os.path.join(tmp, f"two{r}.tsv"), "--nprocs", "2",
+                "--procid", str(r), "--coord", coord, "--scratch", scratch,
+                *extra], 2, env, tmp)
+            with open(os.path.join(tmp, "two0.tsv")) as f:
+                got = f.read()
+            if got != want:
+                fail(f"-fast {run}: rank 0's rows differ from one process")
+            if os.path.exists(os.path.join(tmp, "two1.tsv")):
+                fail(f"-fast {run}: rank 1 created its -o")
+            for r, st in enumerate(stats):
+                if st is None:
+                    fail(f"-fast {run}: rank {r} printed no stats")
+                if extra:
+                    if not st["reused"] or any(st["launches"].values()):
+                        fail(f"-fast resumed: rank {r} did not reuse rows")
+                elif not all(st["launches"][k] > 0 for k in SEARCH_KERNELS):
+                    fail(f"-fast two ranks: rank {r} launched "
+                         f"{st['launches']}")
+            keys = ("range", "cores", "candidates", "reused", "prefilter_s",
+                    "align_s", "wall_s", "launches")
+            print(f"[9] {run}: {secs:.2f} s (one process {one_s:.2f} s), "
+                  f"rank 0's rows byte-equal; per rank "
+                  f"{json.dumps([{k: st[k] for k in keys} for st in stats])}")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     card = card_line()
     print(f"[0] card: {card}")
@@ -602,6 +827,8 @@ def main() -> int:
 
     phase_build()
     chains = read_chains(Q100)
+    big = replica(chains, FAST_DB_CHAINS)
+    db = big[:REPLICA_CHAINS]
     params = DSSParams.create(MODE)
     pipe = DeviceSelfSearch(_encode_all(chains, params, with_self_rev=False),
                             params, device=DEVICE)
@@ -610,15 +837,19 @@ def main() -> int:
     res = phase_kernels(pipe, survivors)
     phase_tie_prone(pipe.mumx)
     del pipe
-    launches = {"q100": phase_q100(chains)}
-    big = replica(chains, FAST_DB_CHAINS)
-    db = big[:REPLICA_CHAINS]
+    launches = {}
+    launches["q100"], want_self, self_s = phase_q100(chains)
     phase_replica(db)
-    launches["self_rev"] = phase_self_rev([("q100", chains),
-                                           ("replica", db)])
-    launches["query_prepass"] = phase_query(chains, db)
+    launches["self_rev"], rev = phase_self_rev([("q100", chains),
+                                                ("replica", db)])
+    launches["query_prepass"], want_query, query_s, want_ten = phase_query(
+        chains, db)
     phase_fast(chains, big)
-    print(f"[8] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    phase_mesh(chains, db, {"self": (want_self, self_s),
+                            "query": (want_query, query_s),
+                            "ten": want_ten, "rev": rev})
+    phase_multiprocess(big)
+    print(f"[10] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": [

@@ -4,26 +4,36 @@ Usage:  python -m reseek_tpu_torch search INPUT (--sensitive |
         --verysensitive | --fast) [--db DB [--dbmu MU.fa] [--idxq |
         --idxt]] [--global] [-o OUT] [--columns ...]
         [--engine auto|device|host] [--device cuda|cpu]
+        [--nprocs N [--procid I] [--coord HOST:PORT] [--scratch DIR]
+        [--resume]]
 
 Without ``--db`` the all-vs-all self-search; with ``--db`` query-vs-DB,
 and with ``--fast --db`` the -fast prefilter pipeline (``--dbmu``,
 ``--idxq``, ``--idxt`` as in reseek_tpu).  ``--global`` runs
-reseek_tpu's host global path.  The multi-host flags (``--nprocs`` > 1,
-``--procid``, ``--coord``, ``--scratch``, ``--resume``) are not ported
-yet and exit with an error.  The argument helpers, the parameter handling
-and the routing follow reseek_tpu.cli's ``search`` command.
+reseek_tpu's host global path.  ``--fast --db X.bca --nprocs N`` is the
+multi-process -fast search (parallel/multihost.py): every rank runs the
+same command with its own rank, from ``--procid``/``--coord`` or from
+torch's RANK, MASTER_ADDR and MASTER_PORT; only rank 0 writes ``-o`` and
+``--aln``; the ranks share ``--scratch`` (default: the directory of
+``-o``, else the temporary directory), where ``--resume`` reuses a
+rank's finished rows when their fingerprint matches the run.  The
+argument helpers, the parameter handling and the routing follow
+reseek_tpu.cli's ``search`` command.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
+import tempfile
 from typing import List, Optional
 
 from reseek_tpu.cli import (_add_mode_args, _mode_from_args,
                             _read_chains_or_artifact)
 
-NOT_PORTED = ("procid", "coord", "scratch", "resume")
+MULTI_PROCESS_FLAGS = ("procid", "coord", "scratch", "resume")
 
 
 def cmd_search(args) -> int:
@@ -34,15 +44,19 @@ def cmd_search(args) -> int:
     from reseek_tpu_torch.device import disable_tf32
     from reseek_tpu_torch.search import driver
 
-    flags = [f for f in NOT_PORTED if getattr(args, f)]
-    if args.nprocs > 1:
-        flags.append("nprocs")
-    if flags:
-        print("reseek_tpu_torch search: not ported yet: "
-              + ", ".join("--" + f.replace("_aln", "") for f in flags),
+    mode = _mode_from_args(args)
+    distributed = args.nprocs > 1
+    if distributed and not (args.db and mode == "fast"):
+        print("reseek_tpu_torch search: --nprocs > 1 runs the "
+              "multi-process -fast search: give --fast --db", file=sys.stderr)
+        return 2
+    given = {f: getattr(args, f) for f in MULTI_PROCESS_FLAGS}
+    flags = [f for f, v in given.items() if v is not None and v is not False]
+    if flags and not distributed:
+        print("reseek_tpu_torch search: "
+              + ", ".join("--" + f for f in flags) + " need --nprocs > 1",
               file=sys.stderr)
         return 2
-    mode = _mode_from_args(args)
     if args.params:
         params = DSSParams.from_tsv(args.params)
         params.mode = mode
@@ -72,6 +86,8 @@ def cmd_search(args) -> int:
                             mode=mode, global_aln=args.global_aln,
                             scores_are_not_evalues=args.scores_are_not_evalues,
                             trace_labels=trace)
+    if distributed:
+        return _search_distributed(args, params, options)
     out = open(args.output, "w") if args.output else sys.stdout
     aln = open(args.aln, "w") if args.aln else None
     options.aln_out = aln
@@ -98,6 +114,44 @@ def cmd_search(args) -> int:
             out.close()
         if aln:
             aln.close()
+    return 0
+
+
+def _search_distributed(args, params, options) -> int:
+    """One rank of the multi-process -fast search
+    (parallel/multihost.py); rank 0 alone opens the outputs."""
+    import torch.distributed as dist
+
+    from reseek_tpu_torch.parallel.multihost import (distributed_fast_search,
+                                                     global_mesh,
+                                                     init_distributed,
+                                                     rank_from_env)
+    coord, procid = rank_from_env(args.nprocs, args.procid, args.coord)
+    rank, _world = init_distributed(coord, args.nprocs, procid)
+    scratch = args.scratch or (
+        os.path.dirname(os.path.abspath(args.output)) if args.output
+        else tempfile.gettempdir())
+    out = aln = None
+    try:
+        if rank == 0:
+            out = open(args.output, "w") if args.output else sys.stdout
+            aln = open(args.aln, "w") if args.aln else None
+        chains = _read_chains_or_artifact(args.input, params)
+        drv = distributed_fast_search(
+            chains, args.db, options, out, scratch_dir=scratch,
+            dbmu=args.dbmu, prefilter_mode=("idxq" if args.idxq else "idxt"
+                                            if args.idxt else None),
+            engine=args.engine, mesh=global_mesh(args.device),
+            resume=args.resume, aln_out=aln, with_aln=bool(args.aln))
+        drv.run_stats(n_threads=max(1, args.threads))
+        print(f"reseek_tpu_torch: rank {rank}: "
+              f"{json.dumps(drv.fast_stats)}", file=sys.stderr)
+    finally:
+        if out is not None and args.output:
+            out.close()
+        if aln is not None:
+            aln.close()
+        dist.destroy_process_group()
     return 0
 
 
@@ -145,12 +199,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --fast: query-neighbourhood prefilter index")
     p.add_argument("--idxt", action="store_true",
                    help="with --fast: target-neighbourhood prefilter index")
-    # accepted so that reseek_tpu command lines fail clearly
-    p.add_argument("--nprocs", type=int, default=1)
-    p.add_argument("--procid", type=int)
-    p.add_argument("--coord")
-    p.add_argument("--scratch")
-    p.add_argument("--resume", action="store_true")
+    p.add_argument("--nprocs", type=int, default=1,
+                   help="with --fast --db X.bca: processes of the "
+                        "multi-process -fast search")
+    p.add_argument("--procid", type=int,
+                   help="this process's rank (default: $RANK)")
+    p.add_argument("--coord", help="HOST:PORT of rank 0's process group "
+                                   "(default: $MASTER_ADDR:$MASTER_PORT)")
+    p.add_argument("--scratch", help="directory the ranks share for their "
+                                     "row files")
+    p.add_argument("--resume", action="store_true",
+                   help="reuse a rank's finished row file when its "
+                        "fingerprint matches this run")
     p.set_defaults(fn=cmd_search)
     return ap
 

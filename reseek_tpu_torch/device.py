@@ -1,5 +1,5 @@
 """Device resolution for the port: an explicit ``torch.device``, never a
-silent substitute.
+silent substitute; and the host cores the process may use.
 
 Asking for ``"cuda"`` without a card raises; on a card, float32 matmuls
 and convolutions must run in full float32 (TF32 keeps ~3 decimal digits,
@@ -8,6 +8,7 @@ cuDNN TF32 by default, so entry points call ``disable_tf32()`` first."""
 
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
@@ -39,3 +40,12 @@ def resolve(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def host_cores() -> int:
+    """The cores this process may run on (its CPU affinity, which a
+    rank of a multi-process run narrows to its share of the host)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:          # no affinity call on this platform
+        return os.cpu_count() or 2

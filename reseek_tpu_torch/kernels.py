@@ -9,10 +9,13 @@ this module imports on machines without ``nvcc``.
 
 Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an error.
+The wrappers call them through ``launch``, which makes the tensors'
+device current and counts the launch.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -137,3 +140,23 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def counted(wrapper):
+    """Decorator: give a kernel wrapper its launch counts, ``launches``
+    and ``by_device`` ({device: launches}), which ``launch`` raises."""
+    wrapper.launches = 0
+    wrapper.by_device = collections.Counter()
+    return wrapper
+
+
+def launch(wrapper, name: str, t: torch.Tensor, *args) -> None:
+    """Call C entry ``name`` with ``args`` and the current stream of
+    ``t``'s device, with that device made current: an entry launches on,
+    and raises its kernel's shared-memory limit for, the current device,
+    so a tensor on ``cuda:1`` must not run against ``cuda:0``.  Counts the
+    launch on ``wrapper`` (``launches``, and ``by_device`` per device)."""
+    with torch.cuda.device(t.device):
+        wrapper.launches += 1
+        wrapper.by_device[str(t.device)] += 1
+        check(getattr(lib(), name)(*args, stream_of(t)), name)

@@ -1,5 +1,6 @@
-"""Device ops of the port.  Each kernel wrapper counts its launches in a
-plain ``launches`` attribute; ``kernel_wrappers`` lists them by kernel."""
+"""Device ops of the port.  Each kernel wrapper counts its launches in
+plain attributes, ``launches`` and ``by_device`` ({device: launches}),
+raised by ``kernels.launch``; ``kernel_wrappers`` lists them by kernel."""
 
 from __future__ import annotations
 

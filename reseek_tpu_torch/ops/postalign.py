@@ -27,6 +27,7 @@ def _cuda_inputs(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
+@kernels.counted
 def walk_traceback_batch(tb: torch.Tensor, best: torch.Tensor,
                          bi: torch.Tensor, bj: torch.Tensor):
     """Backward walk of the skewed traceback tb [Dp, B, LA] uint8 from the
@@ -51,16 +52,13 @@ def walk_traceback_batch(tb: torch.Tensor, best: torch.Tensor,
     path_rev = torch.empty((b, dp + 1), dtype=torch.uint8, device=dev)
     if b == 0:
         return lo_a, lo_b, plen, path_rev
-    walk_traceback_batch.launches += 1
-    kernels.check(kernels.lib().walk_traceback(
-        kernels.ptr(tb), kernels.ptr(best), kernels.ptr(bi), kernels.ptr(bj),
+    kernels.launch(
+        walk_traceback_batch, "walk_traceback", tb, kernels.ptr(tb),
+        kernels.ptr(best), kernels.ptr(bi), kernels.ptr(bj),
         kernels.ptr(lo_a), kernels.ptr(lo_b), kernels.ptr(plen),
-        kernels.ptr(path_rev), b, la, dp, kernels.stream_of(tb)),
-        "walk_traceback")
+        kernels.ptr(path_rev), b, la, dp)
     return lo_a, lo_b, plen, path_rev
 
-
-walk_traceback_batch.launches = 0
 
 
 def walk_traceback_batch_ref(tb: torch.Tensor, best: torch.Tensor,
@@ -106,6 +104,7 @@ def walk_traceback_batch_ref(tb: torch.Tensor, best: torch.Tensor,
     return (i - 1).to(torch.int32), (j - 1).to(torch.int32), plen, path_rev
 
 
+@kernels.counted
 def lddt_batch(cq: torch.Tensor, ct: torch.Tensor, valid: torch.Tensor,
                ncols: torch.Tensor, with_risky: bool = True):
     """Batched LDDT_mu_fast (src/lddt.cpp:63-124) of aligned-column
@@ -132,15 +131,12 @@ def lddt_batch(cq: torch.Tensor, ct: torch.Tensor, valid: torch.Tensor,
     out = torch.empty(b, dtype=torch.float32, device=dev)
     risky = torch.zeros(b, dtype=torch.bool, device=dev)
     if b > 0:
-        lddt_batch.launches += 1
-        kernels.check(kernels.lib().lddt(
-            kernels.ptr(cq), kernels.ptr(ct), kernels.ptr(valid),
-            kernels.ptr(ncols), kernels.ptr(out), kernels.ptr(risky), b, m,
-            int(with_risky), kernels.stream_of(cq)), "lddt")
+        kernels.launch(
+            lddt_batch, "lddt", cq, kernels.ptr(cq), kernels.ptr(ct),
+            kernels.ptr(valid), kernels.ptr(ncols), kernels.ptr(out),
+            kernels.ptr(risky), b, m, int(with_risky))
     return (out, risky) if with_risky else out
 
-
-lddt_batch.launches = 0
 
 
 def _dist2(c: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ NEG = np.float32(-9e9)
 MAX_LB = 8192
 
 
+@kernels.counted
 def mu_sw_scores(a: torch.Tensor, b: torch.Tensor, mumx: torch.Tensor,
                  open_: float, ext: float) -> torch.Tensor:
     """Best local SW score [B] float32 (>= 0) for each pair of Mu letter
@@ -56,17 +57,14 @@ def mu_sw_scores(a: torch.Tensor, b: torch.Tensor, mumx: torch.Tensor,
     out = torch.empty(bsz, dtype=torch.float32, device=a.device)
     if bsz == 0:
         return out
-    mu_sw_scores.launches += 1
-    kernels.check(kernels.lib().mu_sweep(
-        kernels.ptr(a), kernels.ptr(b), kernels.ptr(mumx), kernels.ptr(out),
-        bsz, la, lb, float(open_), float(ext), kernels.stream_of(a)),
-        "mu_sweep")
+    kernels.launch(mu_sw_scores, "mu_sweep", a, kernels.ptr(a),
+                   kernels.ptr(b), kernels.ptr(mumx), kernels.ptr(out), bsz,
+                   la, lb, float(open_), float(ext))
     return out
 
 
-mu_sw_scores.launches = 0
 
-
+@kernels.counted
 def sw_score_sweep(s: torch.Tensor, open_: float,
                    ext: float) -> torch.Tensor:
     """Best local SW score [B] float32 (>= 0) of each substitution matrix
@@ -83,14 +81,10 @@ def sw_score_sweep(s: torch.Tensor, open_: float,
     out = torch.zeros(bsz, dtype=torch.float32, device=s.device)
     if bsz == 0 or la == 0 or lb == 0:
         return out
-    sw_score_sweep.launches += 1
-    kernels.check(kernels.lib().sw_score_sweep(
-        kernels.ptr(s), kernels.ptr(out), bsz, la, lb, float(open_),
-        float(ext), kernels.stream_of(s)), "sw_score_sweep")
+    kernels.launch(sw_score_sweep, "sw_score_sweep", s, kernels.ptr(s),
+                   kernels.ptr(out), bsz, la, lb, float(open_), float(ext))
     return out
 
-
-sw_score_sweep.launches = 0
 
 
 def _sweep_ref(rows, nrows: int, bsz: int, lb: int, open_: float,

@@ -40,6 +40,7 @@ def _check(name: str, s: torch.Tensor) -> None:
         raise ValueError(f"{name}: LA {s.shape[1]} > {MAX_LA}")
 
 
+@kernels.counted
 def sw_traceback(s: torch.Tensor, open_: float, ext: float):
     """s [B, LA, LB] float32 (NEG-padded) -> (best [B] float32, bi [B]
     int32, bj [B] int32, tb [Dp, B, LA] uint8)."""
@@ -55,17 +56,15 @@ def sw_traceback(s: torch.Tensor, open_: float, ext: float):
     tb = torch.empty((dp, b, la), dtype=torch.uint8, device=dev)
     if b == 0:
         return best, bi, bj, tb
-    sw_traceback.launches += 1
-    kernels.check(kernels.lib().sw_traceback(
-        kernels.ptr(s), kernels.ptr(best), kernels.ptr(bi), kernels.ptr(bj),
-        kernels.ptr(tb), b, la, lb, dp, float(open_), float(ext),
-        kernels.stream_of(s)), "sw_traceback")
+    kernels.launch(
+        sw_traceback, "sw_traceback", s, kernels.ptr(s), kernels.ptr(best),
+        kernels.ptr(bi), kernels.ptr(bj), kernels.ptr(tb), b, la, lb, dp,
+        float(open_), float(ext))
     return best, bi, bj, tb
 
 
-sw_traceback.launches = 0
 
-
+@kernels.counted
 def sw_score(s: torch.Tensor, open_: float, ext: float) -> torch.Tensor:
     """s [B, LA, LB] float32 (NEG-padded) -> best local score [B] float32
     (>= 0), bit-equal to sw_traceback's best."""
@@ -76,14 +75,10 @@ def sw_score(s: torch.Tensor, open_: float, ext: float) -> torch.Tensor:
     best = torch.zeros(b, dtype=torch.float32, device=s.device)
     if b == 0 or la == 0 or lb == 0:
         return best
-    sw_score.launches += 1
-    kernels.check(kernels.lib().sw_score(
-        kernels.ptr(s), kernels.ptr(best), b, la, lb, float(open_),
-        float(ext), kernels.stream_of(s)), "sw_score")
+    kernels.launch(sw_score, "sw_score", s, kernels.ptr(s),
+                   kernels.ptr(best), b, la, lb, float(open_), float(ext))
     return best
 
-
-sw_score.launches = 0
 
 
 def _wavefront_ref(s: torch.Tensor, open_: float, ext: float, trace: bool):

@@ -6,7 +6,10 @@ pipeline ``fast_search``, each with its device branch on the port's engine
 The host layer (encode, the Mu prefilter, PairAligner, SearchDriver, emit,
 the native MKF and exact-SW kernels, the host per-pair paths) is
 reseek_tpu's own; this module only swaps the device engine for the
-port's.
+port's.  ``mesh`` (parallel/mesh.py: a Mesh or a sequence of devices)
+deals the engine's work over several devices with identical output; on
+the host and -global paths it is ignored, with a warning, as in
+reseek_tpu.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import itertools
 import math
 import os
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, List, Optional, TextIO
 
@@ -30,15 +34,30 @@ from reseek_tpu.search.driver import (SearchDriver, SearchOptions,
                                       _encode_all, _fwd_displayed,
                                       _maybe_trace)
 from reseek_tpu.search.prefilter import prefilter_search
-from reseek_tpu_torch.device import DeviceLike, resolve
+from reseek_tpu_torch.device import DeviceLike, host_cores, resolve
+from reseek_tpu_torch.parallel.mesh import MeshLike, as_mesh
 from reseek_tpu_torch.search.engine import DeviceSelfSearch
 
 
 def _pool() -> ThreadPoolExecutor:
     """Host pool for self-rev, MKF long pairs and encodes; one core is
     left for the main thread, which drives the device."""
-    return ThreadPoolExecutor(
-        max_workers=max(1, min(32, (os.cpu_count() or 4) - 1)))
+    return ThreadPoolExecutor(max_workers=max(1, min(32, host_cores() - 1)))
+
+
+def _engine_for(name: str, engine: str, mesh, host_only: bool) -> str:
+    """The engine to run: "auto" is "device" on CUDA when a card is
+    present or a mesh is given, else "host"; warns when a mesh is given
+    but the run takes a host path (``host_only``: -global)."""
+    if engine == "auto":
+        engine = ("device" if torch.cuda.is_available() or mesh is not None
+                  else "host")
+    if engine not in ("device", "host"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if mesh is not None and (engine != "device" or host_only):
+        warnings.warn(f"{name}: mesh is ignored on the host/global path; "
+                      "running single-device", stacklevel=3)
+    return engine
 
 
 def _need_all(options: SearchOptions) -> bool:
@@ -54,44 +73,41 @@ def _add_stats(stats: Dict[str, float], pipe: DeviceSelfSearch) -> None:
 
 def self_search(chains: List[Chain], params: DSSParams,
                 options: SearchOptions, out: TextIO, engine: str = "auto",
-                device: DeviceLike = None, mesh=None) -> SearchDriver:
+                device: DeviceLike = None,
+                mesh: MeshLike = None) -> SearchDriver:
     """All-vs-all (src/runself.cpp): pairs (i, j >= i), the self pair
     emitted once, other pairs in both orientations.
 
     engine: "device" runs the port's engine on ``device`` (default
-    "cuda", which raises without a card); "host" runs reseek_tpu's
-    per-pair host path; "auto" is "device" on CUDA when a card is present,
-    else "host".  -global (options.global_aln) runs reseek_tpu's host
-    global path whatever the engine, as reseek_tpu does.  With the device
-    engine the returned driver carries ``device_stats``: host-clock walls
-    of encode, stage 1, stage 3 and the host finish (``*_s``) and the
-    stage-1 survivor count."""
-    if mesh is not None:
-        raise NotImplementedError("self_search: multi-GPU is not ported yet")
-    if options.global_aln:
+    "cuda", which raises without a card), or on the devices of ``mesh``;
+    "host" runs reseek_tpu's per-pair host path; "auto" is "device" on
+    CUDA when a card is present or a mesh is given, else "host".  -global
+    (options.global_aln) runs reseek_tpu's host global path whatever the
+    engine, as reseek_tpu does.  With the device engine the returned
+    driver carries ``device_stats``: host-clock walls of encode, stage 1,
+    stage 3 and the host finish (``*_s``) and the stage-1 survivor
+    count."""
+    mesh = as_mesh(mesh)
+    engine = _engine_for("self_search", engine, mesh, options.global_aln)
+    if engine == "host" or options.global_aln:
         return host_driver.self_search(chains, params, options, out,
                                        engine="host")
-    if engine == "auto":
-        engine = "device" if torch.cuda.is_available() else "host"
-    if engine == "host":
-        return host_driver.self_search(chains, params, options, out,
-                                       engine="host")
-    if engine != "device":
-        raise ValueError(f"unknown engine {engine!r}")
     return _self_search_device(chains, params, options, out,
-                               resolve(device))
+                               resolve(device) if mesh is None else None,
+                               mesh)
 
 
 def _self_search_device(chains: List[Chain], params: DSSParams,
                         options: SearchOptions, out: TextIO,
-                        device: torch.device) -> SearchDriver:
+                        device: Optional[torch.device],
+                        mesh=None) -> SearchDriver:
     """Batched all-vs-all on the port's device engine; long-chain
     (MKF-routed) pairs run on the host path for reference parity."""
     t0 = time.perf_counter()
     ecs = _encode_all(chains, params, with_self_rev=False)
     have_selfrev = all(ec.self_rev_score != FLT_MAX for ec in ecs)
     pipe = DeviceSelfSearch(ecs, params, device=device,
-                            with_rev_profiles=False)
+                            with_rev_profiles=False, mesh=mesh)
     t_encode = time.perf_counter() - t0
 
     drv = SearchDriver(params, options, out)
@@ -165,7 +181,7 @@ def _self_search_device(chains: List[Chain], params: DSSParams,
 
 def query_search(queries: Iterable[Chain], db_chains, params: DSSParams,
                  options: SearchOptions, out: TextIO, engine: str = "auto",
-                 device: DeviceLike = None, mesh=None,
+                 device: DeviceLike = None, mesh: MeshLike = None,
                  chunk_size: Optional[int] = None) -> SearchDriver:
     """Query-vs-DB scan (src/runquery.cpp; role inversion: each DB chain
     is the 'A' side, the query set is scanned as targets, and the output
@@ -174,19 +190,14 @@ def query_search(queries: Iterable[Chain], db_chains, params: DSSParams,
     db_chains: a chain list, any iterable, or a PATH (streamed).  The DB
     side runs in chunks of ``chunk_size`` chains (default
     $RESEEK_QUERY_CHUNK or 4096), so memory stays proportional to the
-    queries plus one chunk.  engine and device as in ``self_search``;
-    "host" runs reseek_tpu's per-pair host path."""
-    if mesh is not None:
-        raise NotImplementedError("query_search: multi-GPU is not ported "
-                                  "yet")
-    if engine == "auto":
-        engine = "device" if torch.cuda.is_available() else "host"
+    queries plus one chunk.  engine, device and mesh as in
+    ``self_search``; "host" runs reseek_tpu's per-pair host path."""
+    mesh = as_mesh(mesh)
+    engine = _engine_for("query_search", engine, mesh, False)
     if engine == "host":
         return host_driver.query_search(queries, db_chains, params, options,
                                         out, engine="host")
-    if engine != "device":
-        raise ValueError(f"unknown engine {engine!r}")
-    dev = resolve(device)
+    dev = resolve(device) if mesh is None else None
     if isinstance(db_chains, str):
         from reseek_tpu.io.reader import iter_chains
         db_iter = (c for c in iter_chains(db_chains) if len(c) > 0)
@@ -195,13 +206,13 @@ def query_search(queries: Iterable[Chain], db_chains, params: DSSParams,
     if chunk_size is None:
         chunk_size = int(os.environ.get("RESEEK_QUERY_CHUNK", "4096"))
     return _query_search_device(list(queries), db_iter, params, options,
-                                out, dev, chunk_size)
+                                out, dev, chunk_size, mesh)
 
 
 def _query_search_device(queries: List[Chain], db_iter, params: DSSParams,
                          options: SearchOptions, out: TextIO,
-                         device: torch.device,
-                         chunk_size: int) -> SearchDriver:
+                         device: Optional[torch.device], chunk_size: int,
+                         mesh=None) -> SearchDriver:
     """Query-vs-DB on the port's engine, DB side chunked: per chunk, one
     engine over queries + chunk chains runs the Mu filter on the explicit
     pair rectangle, then align_survivors; self-rev and the long (MKF)
@@ -240,7 +251,7 @@ def _query_search_device(queries: List[Chain], db_iter, params: DSSParams,
             ecs = q_ecs + t_ecs
             nt = len(t_ecs)
             pipe = DeviceSelfSearch(ecs, params, device=device,
-                                    with_rev_profiles=False)
+                                    with_rev_profiles=False, mesh=mesh)
             if first_chunk:
                 _maybe_trace(drv, ecs, options)
                 first_chunk = False
@@ -297,7 +308,7 @@ def _query_search_device(queries: List[Chain], db_iter, params: DSSParams,
 def _mu_letters(chains: Iterable[Chain]):
     """Mu letters of each chain, in order, encoded in batches on a thread
     pool (the native encoder releases the GIL)."""
-    with ThreadPoolExecutor(max_workers=os.cpu_count() or 2) as tp:
+    with ThreadPoolExecutor(max_workers=host_cores()) as tp:
         it = iter(chains)
         while True:
             batch = list(itertools.islice(it, 1024))
@@ -309,7 +320,7 @@ def _mu_letters(chains: Iterable[Chain]):
 def fast_search(queries: List[Chain], db, params: DSSParams,
                 options: SearchOptions, out: TextIO,
                 dbmu: Optional[str] = None, engine: str = "auto",
-                device: DeviceLike = None, mesh=None,
+                device: DeviceLike = None, mesh: MeshLike = None,
                 prefilter_mode: Optional[str] = None) -> SearchDriver:
     """The big-DB prefilter pipeline (-fast -db, src/search.cpp:62-112):
     (1) reseek_tpu's Mu k-mer prefilter streams the whole DB and keeps the
@@ -321,21 +332,23 @@ def fast_search(queries: List[Chain], db, params: DSSParams,
     db: a path (streamed) or a chain list; dbmu: a Mu-letter FASTA of the
     DB, so stage 1 skips encoding it (-dbmu); prefilter_mode: None,
     "idxq" or "idxt" as in reseek_tpu.  engine "device" aligns the
-    candidates on the port's engine; "host" runs reseek_tpu's fast_search
-    host path; "auto" takes the device when CUDA is present and there are
-    at least $RESEEK_FAST_DEVICE_MIN (20,000) candidate pairs, else
-    reseek_tpu's host stage 2 (reseek_tpu's own rule: small candidate
-    sets finish sooner on the host).  The returned driver carries
-    ``fast_stats``: candidates, survivors read, wall of each stage."""
-    if mesh is not None:
-        raise NotImplementedError("fast_search: multi-GPU is not ported yet")
+    candidates on the port's engine (on ``device``, or dealt over the
+    devices of ``mesh``); "host" runs reseek_tpu's fast_search host path;
+    "auto" takes the device when CUDA is present or a mesh is given and
+    there are at least $RESEEK_FAST_DEVICE_MIN (20,000) candidate pairs,
+    else reseek_tpu's host stage 2 (reseek_tpu's own rule: small
+    candidate sets finish sooner on the host).  The returned driver
+    carries ``fast_stats``: candidates, survivors read, wall of each
+    stage."""
+    mesh = as_mesh(mesh)
     if engine == "host":
+        _engine_for("fast_search", engine, mesh, False)
         return host_driver.fast_search(queries, db, params, options, out,
                                        dbmu=dbmu, engine="host",
                                        prefilter_mode=prefilter_mode)
     if engine not in ("auto", "device"):
         raise ValueError(f"unknown engine {engine!r}")
-    dev = resolve(device) if engine == "device" else None
+    dev = resolve(device) if engine == "device" and mesh is None else None
     t0 = time.perf_counter()
     sens = DSSParams.create("sensitive")
     # queries encode once with sensitive params (Mu letters do not depend
@@ -400,14 +413,16 @@ def fast_search(queries: List[Chain], db, params: DSSParams,
     n_cand = sum(len(v) for v in t2q.values())
     if engine == "auto":
         min_dev = int(os.environ.get("RESEEK_FAST_DEVICE_MIN", "20000"))
-        engine = ("device" if torch.cuda.is_available() and n_cand >= min_dev
-                  else "host")
-        dev = resolve(device) if engine == "device" else None
+        engine = _engine_for(
+            "fast_search", "auto" if n_cand >= min_dev else "host", mesh,
+            False)
+        dev = (resolve(device) if engine == "device" and mesh is None
+               else None)
     stats: Dict[str, float] = {"candidates": n_cand,
                                "targets_read": len(tidxs)}
     if engine == "device":
         _fast_align_device(drv, q_ecs, survivor_chains(), t2q, sens,
-                           options, dev, stats)
+                           options, dev, stats, mesh)
     else:
         host_driver._fast_align_host(drv, q_ecs, survivor_chains(), t2q,
                                      sens)
@@ -419,10 +434,12 @@ def fast_search(queries: List[Chain], db, params: DSSParams,
 
 def _fast_align_device(drv: SearchDriver, q_ecs: List[EncodedChain],
                        survivor_iter, t2q, sens: DSSParams,
-                       options: SearchOptions, device: torch.device,
-                       stats: Dict[str, float]) -> None:
-    """Stage 2 of the -fast pipeline on the port's engine (PostMuFilter's
-    parallel ChainBag scan as device batches): the surviving targets run
+                       options: SearchOptions,
+                       device: Optional[torch.device],
+                       stats: Dict[str, float], mesh=None) -> None:
+    """Stage 2 of the -fast pipeline on the port's engine, on ``device``
+    or the devices of ``mesh`` (PostMuFilter's parallel ChainBag scan as
+    device batches): the surviving targets run
     in chunks of $RESEEK_FAST_CHUNK (4096); per chunk, one engine over
     queries + chunk targets runs the Mu filter on the candidate pairs
     (query side = A, PostMuFilter's orientation), then align_survivors;
@@ -459,7 +476,7 @@ def _fast_align_device(drv: SearchDriver, q_ecs: List[EncodedChain],
             tpos = {tidx: k for k, tidx in enumerate(t_order)}
             ecs = list(q_ecs) + list(t_ecs)
             pipe = DeviceSelfSearch(ecs, sens, device=device,
-                                    with_rev_profiles=False)
+                                    with_rev_profiles=False, mesh=mesh)
             lens = np.array([len(ec) for ec in ecs])
             pairs = np.array([(qi, nq + tpos[tidx])
                               for tidx in t_order for qi in t2q[tidx]],

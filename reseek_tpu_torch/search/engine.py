@@ -22,6 +22,17 @@ query-vs-DB and the -fast pipeline's stage 2.
   - TS/P/E on the host in reference float32 order, with the display-band
     checks that send boundary pairs to the exact host kernels.
 
+With a ``mesh`` (parallel/mesh.py) the engine keeps one replica of its
+device state on each mesh device and deals every work list round-robin
+over the mesh positions: stage-1 pair blocks (reseek_tpu launches one per
+mesh device per launch), and the chunks of stage1_scores, stage2_scores
+(so the self-reversal scores) and align_survivors.  Every chunk is
+launched before any is fetched, and the host finish runs in the
+single-device chunk order.  Each pair's computation is the single-device
+one, so results are identical.  reseek_tpu's mesh path forces max-edge
+squares to keep one compiled shape per edge; nothing is compiled here, so
+the single-device plan, rectangular edges and all, is kept.
+
 Pairs with a chain at or above the MKF length routing threshold are not
 handled here; the driver aligns them on the host path and merges.  Bucket
 edges are the JAX engine's 128-multiples: they change padding, never
@@ -30,7 +41,7 @@ results.
 
 from __future__ import annotations
 
-import os
+import copy
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
@@ -50,13 +61,14 @@ from reseek_tpu.search.engine import (MU_SAT_LIMIT, MU_SAT_REV_SCORE,
                                       _PATH_CHARS, _batch_shape, _edges_for,
                                       _exact_fwd_score, _rect_edges,
                                       _vector_stats)
-from reseek_tpu_torch.device import DeviceLike, resolve
+from reseek_tpu_torch.device import DeviceLike, host_cores, resolve
 from reseek_tpu_torch.ops.postalign import (PD, PI, PM, lddt_batch,
                                             walk_traceback_batch)
 from reseek_tpu_torch.ops.smx import (flat_layout, mu_table, profile_codes,
                                       profile_smx)
 from reseek_tpu_torch.ops.sw_sweep import mu_sw_scores, sw_score_sweep
 from reseek_tpu_torch.ops.sw_wavefront import sw_score, sw_traceback
+from reseek_tpu_torch.parallel.mesh import MeshLike, as_mesh
 
 
 def _f32(x: float) -> float:
@@ -99,11 +111,13 @@ class DeviceSelfSearch:
     + src/dssaligner.cpp), on ``device``: all-vs-all, or given pairs.
 
     with_rev_profiles: encode and upload the reversed chains' profiles
-    (``build_rev_profiles``), which the self-reversal scores need."""
+    (``build_rev_profiles``), which the self-reversal scores need.
+    mesh: a one-process mesh (or a sequence of devices); the work is dealt
+    over its positions, and ``device`` is its first device."""
 
     def __init__(self, ecs: List[EncodedChain], params: DSSParams,
                  device: DeviceLike = "cuda",
-                 with_rev_profiles: bool = True):
+                 with_rev_profiles: bool = True, mesh: MeshLike = None):
         lens = np.array([len(ec) for ec in ecs], np.int64)
         order = np.argsort(lens, kind="stable")
         edges = _edges_for(params, int(lens.max()) if len(lens) else 1)
@@ -121,15 +135,15 @@ class DeviceSelfSearch:
             mu_rev[s, :ln] = ec.mu_letters[:ln][::-1]
             coords[s, :ln] = ec.chain.coords[:ln]
         self._setup(ecs, params, device, order, edges, prof, mu, mu_rev,
-                    coords, w, offsets, mu_table())
+                    coords, w, offsets, mu_table(), mesh)
         if with_rev_profiles:
             self.build_rev_profiles()
 
     @classmethod
     def from_arrays(cls, ecs: List[EncodedChain], params: DSSParams,
                     device: DeviceLike = "cuda", *, order, edges, prof, mu,
-                    mu_rev, coords, w, offsets,
-                    mumx) -> "DeviceSelfSearch":
+                    mu_rev, coords, w, offsets, mumx,
+                    mesh: MeshLike = None) -> "DeviceSelfSearch":
         """An engine over given device state (numpy arrays, e.g. fetched
         from reseek_tpu's DeviceSelfSearch): sorted order, bucket edges,
         sorted uint8 profiles [N, F, L], Mu letters and reversed letters
@@ -137,12 +151,14 @@ class DeviceSelfSearch:
         the padded Mu table."""
         self = cls.__new__(cls)
         self._setup(ecs, params, device, order, edges, prof, mu, mu_rev,
-                    coords, w, offsets, mumx)
+                    coords, w, offsets, mumx, mesh)
         return self
 
     def _setup(self, ecs, params, device, order, edges, prof, mu, mu_rev,
-               coords, w, offsets, mumx) -> None:
-        dev = resolve(device)
+               coords, w, offsets, mumx, mesh) -> None:
+        self.mesh = as_mesh(mesh)
+        dev = (self.mesh.devices[0] if self.mesh is not None
+               else resolve(device))
         self.device = dev
         self.ecs = ecs
         self.params = params
@@ -176,9 +192,24 @@ class DeviceSelfSearch:
         self.pad_code = int(self.w.shape[0]) - 1
         self.prof_rev: Optional[torch.Tensor] = None
         # host-clock walls of the last stage-1 call, stage-2 prepass and
-        # align_survivors, each read after the device has finished (see
+        # align_survivors, each read after every device has finished (see
         # _clock)
         self.seconds: Dict[str, float] = {}
+        # one view of the engine per mesh position; positions on one
+        # device share its view, whose device state is that device's
+        # replica (the first device's is this engine's own)
+        views = {dev: self}
+        for d in (self.mesh.devices if self.mesh is not None else ()):
+            if d not in views:
+                views[d] = v = copy.copy(self)
+                v.device = d
+                for name in ("prof", "mu", "mu_rev", "coords", "w",
+                             "offsets", "mumx"):
+                    setattr(v, name, getattr(self, name).to(d))
+        self._views = ([views[d] for d in self.mesh.devices]
+                       if self.mesh is not None else [self])
+        for v in views.values():
+            v._views = self._views
 
     def build_rev_profiles(self) -> None:
         """Encode the reversed chains below mkfl on a host thread pool and
@@ -200,14 +231,36 @@ class DeviceSelfSearch:
                 ec.chain.reversed()).profile(p)[:, :ln]
 
         # the native encoder releases the GIL
-        with ThreadPoolExecutor(max_workers=os.cpu_count() or 2) as tp:
+        with ThreadPoolExecutor(max_workers=host_cores()) as tp:
             list(tp.map(rev_one, enumerate(self.order)))
         self.prof_rev = torch.tensor(prof_rev, device=self.device)
+        for v in self._views:
+            if v.prof_rev is None:
+                v.prof_rev = self.prof_rev.to(v.device)
+
+    def _view(self, k: int) -> "DeviceSelfSearch":
+        """The view that runs chunk ``k``: mesh position k mod size."""
+        return self._views[k % len(self._views)]
+
+    def _fetch(self, outs: List[torch.Tensor]) -> List[np.ndarray]:
+        """Host copies of chunk outputs, chunk k made on ``_view(k)``:
+        one transfer per mesh position, chunk order kept."""
+        n = len(self._views)
+        got: List[np.ndarray] = [None] * len(outs)
+        for v in range(min(n, len(outs))):
+            part = outs[v::n]
+            flat = torch.cat(part).cpu().numpy()
+            ends = np.cumsum([len(x) for x in part])
+            for k, x in zip(range(v, len(outs), n),
+                            np.split(flat, ends[:-1])):
+                got[k] = x
+        return got
 
     def _clock(self) -> float:
-        """Host clock after the device's queued work has finished."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Host clock after every device's queued work has finished."""
+        for d in {v.device for v in self._views}:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         return time.perf_counter()
 
     def _device_ranges(self):
@@ -305,19 +358,16 @@ class DeviceSelfSearch:
                     keep = ib >= ia
                     pair_chunks.append(np.stack([ia[keep], ib[keep]], axis=1))
         else:
+            # block k on mesh position k mod size; all launched, then
+            # fetched
             blocks, masks = [], []
             for (lea, leb, ca, cb), starts in self.stage1_block_plan().items():
                 for ba, bb, a1, b1 in starts:
-                    masks.append(self._stage1_block(lea, leb, ca, cb, ba, bb,
-                                                    a1, b1))
+                    masks.append(self._view(len(masks))._stage1_block(
+                        lea, leb, ca, cb, ba, bb, a1, b1))
                     blocks.append((ba, bb, ca, cb))
-            flat = (torch.cat(masks).cpu().numpy() if masks
-                    else np.zeros(0, bool))
-            pos = 0
-            for ba, bb, ca, cb in blocks:
-                ia_r, ib_r = np.nonzero(flat[pos: pos + ca * cb]
-                                        .reshape(ca, cb))
-                pos += ca * cb
+            for (ba, bb, ca, cb), mask in zip(blocks, self._fetch(masks)):
+                ia_r, ib_r = np.nonzero(mask.reshape(ca, cb))
                 if len(ia_r):
                     pair_chunks.append(np.stack([ba + ia_r, bb + ib_r],
                                                 axis=1))
@@ -365,19 +415,17 @@ class DeviceSelfSearch:
             bs = _batch_shape(len(rows), lea, STAGE1_CELLS // 2, le_b=leb)
             for kk in range(0, len(rows), bs):
                 rr = rows[kk: kk + bs]
-                ia = self._sorted_idx(pairs_orig[rr, 0])
-                b = self.mu[self._sorted_idx(pairs_orig[rr, 1]), :leb]
+                v = self._view(len(jobs))
+                ia = v._sorted_idx(pairs_orig[rr, 0])
+                b = v.mu[v._sorted_idx(pairs_orig[rr, 1]), :leb]
                 both = mu_sw_scores(
-                    torch.cat([self.mu[ia, :lea], self.mu_rev[ia, :lea]]),
-                    torch.cat([b, b]), self.mumx, o, e)
+                    torch.cat([v.mu[ia, :lea], v.mu_rev[ia, :lea]]),
+                    torch.cat([b, b]), v.mumx, o, e)
                 jobs.append((rr, both))
-        fetched = torch.cat([both for _, both in jobs]).cpu().numpy()
-        pos = 0
-        for rr, _ in jobs:
+        for (rr, _), both in zip(jobs, self._fetch([x for _, x in jobs])):
             n = len(rr)
-            fwd = fetched[pos: pos + n].copy()
-            rev = fetched[pos + n: pos + 2 * n].copy()
-            pos += 2 * n
+            fwd = both[:n].copy()
+            rev = both[n:].copy()
             # parasail 8-bit saturation (align/pipeline.py MU_SAT_* notes)
             fwd[fwd > MU_SAT_LIMIT] = MU_SAT_SCORE
             rev[rev > MU_SAT_LIMIT] = MU_SAT_REV_SCORE
@@ -388,22 +436,26 @@ class DeviceSelfSearch:
         return out
 
     # -- stage 2: score-only full-profile SW -----------------------------
-    def stage2_plan(self, pairs_orig: np.ndarray):
-        """Stage-2 chunks of (i, j) original-index pairs: [(le, rows of
-        pairs_orig [n], ia [n], ib [n] sorted-index tensors)].  Pairs are
-        grouped by the square of their larger edge, at most STAGE2_CELLS
-        DP cells per chunk."""
+    def _stage2_chunks(self, pairs_orig: np.ndarray):
+        """[(le, rows of pairs_orig)]: pairs grouped by the square of
+        their larger edge, at most STAGE2_CELLS DP cells per chunk."""
         be = self._edge_of(np.maximum(self.lens[pairs_orig[:, 0]],
                                       self.lens[pairs_orig[:, 1]]))
         plan = []
         for le in sorted({int(x) for x in be}):
             rows = np.flatnonzero(be == le)
             bs = _batch_shape(len(rows), le, STAGE2_CELLS)
-            for kk in range(0, len(rows), bs):
-                rr = rows[kk: kk + bs]
-                plan.append((le, rr, self._sorted_idx(pairs_orig[rr, 0]),
-                             self._sorted_idx(pairs_orig[rr, 1])))
+            plan.extend((le, rows[kk: kk + bs])
+                        for kk in range(0, len(rows), bs))
         return plan
+
+    def stage2_plan(self, pairs_orig: np.ndarray):
+        """Stage-2 chunks of (i, j) original-index pairs: [(le, rows of
+        pairs_orig [n], ia [n], ib [n] sorted-index tensors)]
+        (``_stage2_chunks``, indices on the first device)."""
+        return [(le, rr, self._sorted_idx(pairs_orig[rr, 0]),
+                 self._sorted_idx(pairs_orig[rr, 1]))
+                for le, rr in self._stage2_chunks(pairs_orig)]
 
     def stage2_scores(self, pairs_orig: np.ndarray, b_side_rev: bool = False,
                       exact: bool = False) -> np.ndarray:
@@ -422,18 +474,17 @@ class DeviceSelfSearch:
             return out
         if b_side_rev:
             self.build_rev_profiles()
-        prof_b = self.prof_rev if b_side_rev else self.prof
         score = sw_score if exact else sw_score_sweep
         jobs = []
-        for le, rr, ia, ib in self.stage2_plan(pairs_orig):
-            s = self.stage3_smx(le, le, ia, ib, prof_b)
+        for le, rr in self._stage2_chunks(pairs_orig):
+            v = self._view(len(jobs))
+            s = v.stage3_smx(le, le, v._sorted_idx(pairs_orig[rr, 0]),
+                             v._sorted_idx(pairs_orig[rr, 1]),
+                             v.prof_rev if b_side_rev else v.prof)
             jobs.append((rr, score(s, float(p.gap_open), float(p.gap_ext))))
             del s
-        fetched = torch.cat([sc for _, sc in jobs]).cpu().numpy()
-        pos = 0
-        for rr, _ in jobs:
-            out[rr] = fetched[pos: pos + len(rr)]
-            pos += len(rr)
+        for (rr, _), sc in zip(jobs, self._fetch([x for _, x in jobs])):
+            out[rr] = sc
         self.seconds["stage2"] = self._clock() - t0
         return out
 
@@ -455,12 +506,11 @@ class DeviceSelfSearch:
         return out
 
     # -- stage 3: align + LDDT on survivors ------------------------------
-    def stage3_plan(self, pairs_orig: np.ndarray):
-        """Stage-3 chunks of (i, j) original-index pairs: [(lea, leb,
-        chunk pairs [n, 2], ia [n], ib [n] sorted-index tensors)].  The DP
-        shape is rectangular (A edge x B edge) when the edges differ >= 2x,
-        else the larger edge's square; chunks hold at most STAGE3_CELLS
-        DP cells."""
+    def _stage3_chunks(self, pairs_orig: np.ndarray):
+        """[(lea, leb, chunk pairs [n, 2])].  The DP shape is
+        rectangular (A edge x B edge) when the edges differ >= 2x, else the
+        larger edge's square; chunks hold at most STAGE3_CELLS DP
+        cells."""
         ra, rb = _rect_edges(self._edge_of(self.lens[pairs_orig[:, 0]]),
                              self._edge_of(self.lens[pairs_orig[:, 1]]))
         keys = ra.astype(np.int64) * (1 << 20) + rb
@@ -469,11 +519,17 @@ class DeviceSelfSearch:
             lea, leb = key >> 20, key & ((1 << 20) - 1)
             rows = np.flatnonzero(keys == key)
             bs = _batch_shape(len(rows), lea, STAGE3_CELLS, le_b=leb)
-            for kk in range(0, len(rows), bs):
-                chunk = pairs_orig[rows[kk: kk + bs]]
-                plan.append((lea, leb, chunk, self._sorted_idx(chunk[:, 0]),
-                             self._sorted_idx(chunk[:, 1])))
+            plan.extend((lea, leb, pairs_orig[rows[kk: kk + bs]])
+                        for kk in range(0, len(rows), bs))
         return plan
+
+    def stage3_plan(self, pairs_orig: np.ndarray):
+        """Stage-3 chunks of (i, j) original-index pairs: [(lea, leb,
+        chunk pairs [n, 2], ia [n], ib [n] sorted-index tensors)]
+        (``_stage3_chunks``, indices on the first device)."""
+        return [(lea, leb, chunk, self._sorted_idx(chunk[:, 0]),
+                 self._sorted_idx(chunk[:, 1]))
+                for lea, leb, chunk in self._stage3_chunks(pairs_orig)]
 
     def stage3_smx(self, lea: int, leb: int, ia: torch.Tensor,
                    ib: torch.Tensor,
@@ -567,9 +623,14 @@ class DeviceSelfSearch:
         if len(pairs_orig) == 0:
             return results
         t0 = self._clock()
-        # launch every chunk, then fetch: the device runs ahead of the host
-        jobs = [(chunk, self._stage3_chunk(lea, leb, ia, ib))
-                for lea, leb, chunk, ia, ib in self.stage3_plan(pairs_orig)]
+        # launch every chunk (chunk k on mesh position k mod size), then
+        # fetch: the devices run ahead of the host
+        jobs = []
+        for lea, leb, chunk in self._stage3_chunks(pairs_orig):
+            v = self._view(len(jobs))
+            jobs.append((chunk, v._stage3_chunk(
+                lea, leb, v._sorted_idx(chunk[:, 0]),
+                v._sorted_idx(chunk[:, 1]))))
         fetched = [(chunk, {k: v.cpu().numpy() for k, v in out.items()})
                    for chunk, out in jobs]
         t1 = self._clock()

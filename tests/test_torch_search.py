@@ -123,15 +123,19 @@ sys.exit(rc)
 
 
 def test_cli_refuses_unported_flags(tmp_path):
-    """The multi-host flags are not ported yet."""
-    proc = subprocess.run(
-        [sys.executable, "-m", "reseek_tpu_torch", "search", Q100,
-         "--fast", "--db", Q100, "--nprocs", "2", "-o",
-         str(tmp_path / "x.tsv")],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert proc.returncode != 0
-    assert "not ported yet" in proc.stderr
-    assert not (tmp_path / "x.tsv").exists()
+    """The multi-process flags belong to the multi-process -fast search
+    alone: elsewhere they are refused before anything is written."""
+    for extra, says in ((["--sensitive", "--nprocs", "2"],
+                         "give --fast --db"),
+                        (["--fast", "--db", Q100, "--resume", "--procid",
+                          "0"], "--procid, --resume need --nprocs > 1")):
+        proc = subprocess.run(
+            [sys.executable, "-m", "reseek_tpu_torch", "search", Q100,
+             "-o", str(tmp_path / "x.tsv"), *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 2
+        assert says in proc.stderr
+        assert not (tmp_path / "x.tsv").exists()
 
 
 def test_cuda_without_a_card_raises(subset):
@@ -149,14 +153,22 @@ def test_cuda_without_a_card_raises(subset):
 
 
 def test_unported_options_raise(subset):
-    """A device mesh (multi-GPU) is not ported yet."""
+    """A mesh that is not a sequence of devices, an empty one, or one that
+    names CUDA without a card raises in every driver, before any output:
+    never a silent single-device or CPU run."""
     params = DSSParams.create("sensitive")
     opts = SearchOptions(columns=["query"])
+    bad = [(object(), TypeError), ("cpu", TypeError), ((), ValueError)]
+    if not torch.cuda.is_available():
+        bad.append((("cuda:0", "cuda:0"), RuntimeError))
     for fn, args in ((torch_driver.self_search, (subset[:2],)),
                      (torch_driver.query_search, (subset[:1], subset[:2])),
                      (torch_driver.fast_search, (subset[:1], subset[:2]))):
-        with pytest.raises(NotImplementedError):
-            fn(*args, params, opts, io.StringIO(), mesh=object())
+        for mesh, exc in bad:
+            out = io.StringIO()
+            with pytest.raises(exc):
+                fn(*args, params, opts, out, mesh=mesh)
+            assert out.getvalue() == ""
 
 
 @pytest.mark.parametrize("engine", ["device", "host"])
