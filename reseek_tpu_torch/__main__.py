@@ -9,8 +9,8 @@ Usage:  python -m reseek_tpu_torch search INPUT (--sensitive |
 
 Without ``--db`` the all-vs-all self-search; with ``--db`` query-vs-DB,
 and with ``--fast --db`` the -fast prefilter pipeline (``--dbmu``,
-``--idxq``, ``--idxt`` as in reseek_tpu).  ``--global`` runs
-reseek_tpu's host global path.  ``--fast --db X.bca --nprocs N`` is the
+``--idxq``, ``--idxt`` as in reseek_tpu).  ``--global`` runs the host
+global path.  ``--fast --db X.bca --nprocs N`` is the
 multi-process -fast search (parallel/multihost.py): every rank runs the
 same command with its own rank, from ``--procid``/``--coord`` or from
 torch's RANK, MASTER_ADDR and MASTER_PORT; only rank 0 writes ``-o`` and
@@ -30,19 +30,45 @@ import sys
 import tempfile
 from typing import List, Optional
 
-from reseek_tpu.cli import (_add_mode_args, _mode_from_args,
-                            _read_chains_or_artifact)
-
 MULTI_PROCESS_FLAGS = ("procid", "coord", "scratch", "resume")
 
 
+def _add_mode_args(p: argparse.ArgumentParser) -> None:
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("--fast", action="store_true")
+    g.add_argument("--sensitive", action="store_true")
+    g.add_argument("--verysensitive", action="store_true")
+
+
+def _mode_from_args(args, default: Optional[str] = None) -> str:
+    if args.fast:
+        return "fast"
+    if args.sensitive:
+        return "sensitive"
+    if args.verysensitive:
+        return "verysensitive"
+    if default is None:
+        raise SystemExit("Must set --fast, --sensitive or --verysensitive")
+    return default
+
+
+def _read_chains_or_artifact(path: str, params):
+    """A .rsdx path loads pre-encoded chains (skipping all DSS work);
+    anything else parses structures (src/search.cpp:96-99 -dbmu role)."""
+    from reseek_tpu_torch.io.artifact import is_artifact, load_artifact
+    from reseek_tpu_torch.io.reader import read_chains
+    if is_artifact(path):
+        return load_artifact(path, params, mode=params.mode)
+    return read_chains(path)
+
+
 def cmd_search(args) -> int:
-    from reseek_tpu.align.output import parse_columns
-    from reseek_tpu.constants import DSSParams
-    from reseek_tpu.search.driver import SearchOptions
-    from reseek_tpu.utils.logger import open_log
+    from reseek_tpu_torch.align.output import parse_columns
+    from reseek_tpu_torch.constants import DSSParams
     from reseek_tpu_torch.device import disable_tf32
     from reseek_tpu_torch.search import driver
+    from reseek_tpu_torch.search.host import SearchOptions
+    from reseek_tpu_torch.utils.logger import open_log
 
     mode = _mode_from_args(args)
     distributed = args.nprocs > 1
@@ -100,7 +126,7 @@ def cmd_search(args) -> int:
                 prefilter_mode=("idxq" if args.idxq
                                 else "idxt" if args.idxt else None), **kw)
         elif args.db:
-            from reseek_tpu.io.artifact import is_artifact
+            from reseek_tpu_torch.io.artifact import is_artifact
             # structure files stream (memory O(queries + chunk)); .rsdx
             # artifacts load pre-encoded
             db = (_read_chains_or_artifact(args.db, params)
@@ -179,8 +205,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log", help="write a log file (reference -log)")
     p.add_argument("--engine", default="auto",
                    choices=["auto", "device", "host"],
-                   help="device engine, or reseek_tpu's host per-pair path "
-                        "(default: device when a CUDA card is present)")
+                   help="device engine (auto), or the host per-pair "
+                        "engine")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="torch device of the device engine")
     p.add_argument("--params", help="name<TAB>value parameter file")

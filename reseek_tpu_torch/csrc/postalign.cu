@@ -5,13 +5,19 @@
 // hundreds of tiny launches per chunk.
 //
 // walk_traceback (replaces postalign_jax.walk_traceback_batch): one thread
-// per pair walks the skewed traceback bytes backward from the best cell,
-// exactly as the scan does: the same clamped reads, the same state
+// per pair walks the traceback backward from the best cell, exactly as the
+// scan does on the skewed bytes: the same clamped reads (a read at (i, j)
+// goes to skewed location (clip(i+j), clip(i)), i.e. cell (clip(i),
+// clip(i+j) - clip(i)), which reads 0 outside 0 <= j < LB), the same state
 // machine, the stop-without-decrement rule and done0 = best <= 0, with
-// PEND (0) codes after the end.  Bound on the H100: one dependent byte load
-// per step (latency, not bandwidth); pairs are independent, so the design
-// is simply one pair per thread and as many pairs in flight as the chunk
-// holds.
+// PEND (0) codes after the end.  The traceback is the packed layout of
+// csrc/sw_align.cu (4 bits a cell; rows in strips of R per lane, tiles of
+// 32 R rows, LB + 31 steps a tile).  Bound on the H100: one dependent
+// load per step (latency, not bandwidth); pairs are independent, so all of
+// a chunk's pairs are in flight at once, each in a block of one thread:
+// pairs sharing a warp diverge at every step and wait on each other's
+// scattered loads (the walk at 213 pairs of 512 x 512 took ~3x longer
+// with 128 pairs a block), while a warp each spreads them over the SMs.
 //
 // lddt (replaces postalign_jax.lddt_batch, LDDT_mu_fast of src/lddt.cpp):
 // one block per pair.  The O(M^2) column-pair work is spread over the
@@ -33,25 +39,39 @@
 
 namespace {
 
-constexpr int WALK_THREADS = 128;
+constexpr int WALK_THREADS = 1;      // one pair a block (see above)
 constexpr int LDDT_THREADS = 256;
 constexpr float R0_SQ = 225.0f;
 
+template <int R>
 __global__ void __launch_bounds__(WALK_THREADS)
 walk_kernel(const uint8_t* __restrict__ tb, const float* __restrict__ best,
             const int* __restrict__ best_i, const int* __restrict__ best_j,
             int* __restrict__ lo_a, int* __restrict__ lo_b,
             int* __restrict__ plen, uint8_t* __restrict__ path_rev, int B,
-            int LA, int Dp) {
+            int LA, int LB, int Dp) {
+  // R (rows a lane) and the 32 lanes of a tile are powers of two: the
+  // address of a cell is shifts and masks, since each step's load waits
+  // on the index arithmetic before it
+  constexpr int LOG_R = R == 4 ? 2 : 3;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= B) return;
   const int steps = Dp + 1;
+  const int tiles = (LA + 32 * R - 1) / (32 * R);
+  const int words = (LB + 31) * 32;               // words of a tile
+  const uint8_t* ptb = tb + (size_t)p * tiles * words * (R / 2);
   uint8_t* out = path_rev + (size_t)p * steps;
-  // tb[clip(i+j), p, clip(i)]: the clamped gather of the JAX walk
+  // the code of skewed location (clip(i+j), clip(i)) of this pair
   auto at = [&](int i, int j) -> int {
     const int d = min(max(i + j, 0), Dp - 1);
     const int ic = min(max(i, 0), LA - 1);
-    return tb[((size_t)d * B + p) * LA + ic];
+    const int jc = d - ic;
+    if (jc < 0 || jc >= LB) return 0;
+    const int tile = ic >> (5 + LOG_R);
+    const int k = (ic >> LOG_R) & 31;
+    const int r = ic & (R - 1);
+    const int word = tile * words + (jc + k) * 32 + k;
+    return (ptb[word * (R / 2) + (r >> 1)] >> (4 * (r & 1))) & 15;
   };
   int i = best_i[p] + 1;
   int j = best_j[p] + 1;
@@ -167,18 +187,24 @@ lddt_kernel(const float* __restrict__ cq, const float* __restrict__ ct,
 
 extern "C" {
 
-// tb [Dp, B, LA] uint8, best [B] float32, best_i/best_j [B] int32;
-// lo_a/lo_b/plen [B] int32, path_rev [B, Dp+1] uint8.
+// tb: csrc/sw_align.cu's packed traceback of a [LA, LB] shape with R rows
+// a lane; best [B] float32, best_i/best_j [B] int32; lo_a/lo_b/plen [B]
+// int32, path_rev [B, Dp+1] uint8 (Dp >= LA+LB-1).
 int walk_traceback(const void* tb, const void* best, const void* best_i,
                    const void* best_j, void* lo_a, void* lo_b, void* plen,
-                   void* path_rev, int B, int LA, int Dp, void* stream) {
+                   void* path_rev, int B, int LA, int LB, int Dp, int R,
+                   void* stream) {
   if (B <= 0) return 0;
+  if (Dp < LA + LB - 1 || (R != 4 && R != 8))
+    return (int)cudaErrorInvalidValue;
   const int blocks = (B + WALK_THREADS - 1) / WALK_THREADS;
-  walk_kernel<<<blocks, WALK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = R == 4 ? walk_kernel<4> : walk_kernel<8>;
+  kernel<<<blocks, WALK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(tb), static_cast<const float*>(best),
       static_cast<const int*>(best_i), static_cast<const int*>(best_j),
       static_cast<int*>(lo_a), static_cast<int*>(lo_b),
-      static_cast<int*>(plen), static_cast<uint8_t*>(path_rev), B, LA, Dp);
+      static_cast<int*>(plen), static_cast<uint8_t*>(path_rev), B, LA, LB,
+      Dp);
   return cudaGetLastError();
 }
 

@@ -30,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mu_sweep.cu", "sw_traceback.cu", "postalign.cu")
+SOURCES = ("mu_sweep.cu", "sw_traceback.cu", "sw_align.cu",
+           "postalign.cu")
 LIB_NAME = "libreseek_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -39,13 +40,16 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)     # host int array
 # argument types of each C entry (pointers and the stream as void*)
 _SIGNATURES = {
     "mu_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
     "sw_score_sweep": [_P, _P, _I, _I, _I, _F, _F, _P],
-    "sw_traceback": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "sw_score": [_P, _P, _I, _I, _I, _F, _F, _P],
-    "walk_traceback": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "sw_align": [_P, _P, _P, _P, _I, _IP, _I, _I, _I, _I, _I, _I, _F, _F, _P,
+                 _P, _P, _P, _P, _P],
+    "walk_traceback": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _P],
     "lddt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 

@@ -9,6 +9,8 @@ import numpy as np
 import torch
 
 from reseek_tpu_torch import kernels
+from reseek_tpu_torch.ops.sw_align import tb_shape, unpack_tb
+from reseek_tpu_torch.ops.sw_wavefront import diag_count
 
 # path codes
 PM, PD, PI, PEND = 1, 2, 3, 0
@@ -29,22 +31,28 @@ def _cuda_inputs(name: str, *ts: torch.Tensor) -> None:
 
 @kernels.counted
 def walk_traceback_batch(tb: torch.Tensor, best: torch.Tensor,
-                         bi: torch.Tensor, bj: torch.Tensor):
-    """Backward walk of the skewed traceback tb [Dp, B, LA] uint8 from the
-    best cells (bi, bj) (src/sw.cpp:8-77 semantics).  Returns (lo_a [B],
-    lo_b [B], plen [B] int32, path_rev [B, Dp+1] uint8) with path_rev
-    holding PM/PD/PI codes backward from the alignment end, then PEND."""
+                         bi: torch.Tensor, bj: torch.Tensor, la: int):
+    """Backward walk from the best cells (bi, bj) over the packed
+    traceback of a [la, LB] DP shape (ops/sw_align.py; src/sw.cpp:8-77
+    semantics).  Returns (lo_a [B], lo_b [B], plen [B] int32, path_rev
+    [B, Dp+1] uint8) with path_rev holding PM/PD/PI codes backward from the
+    alignment end, then PEND; Dp = diag_count(la, LB)."""
     if tb.device.type == "cpu":
-        return walk_traceback_batch_ref(tb, best, bi, bj)
-    if tb.dtype != torch.uint8 or tb.dim() != 3:
-        raise TypeError("walk_traceback_batch: tb must be uint8 [Dp, B, LA]")
+        return walk_traceback_batch_ref(tb, best, bi, bj, la)
+    if tb.dtype != torch.uint8 or tb.dim() != 5:
+        raise TypeError("walk_traceback_batch: tb must be the packed uint8 "
+                        "traceback [B, tiles, LB+31, 32, R/2]")
     if (best.dtype != torch.float32 or bi.dtype != torch.int32
             or bj.dtype != torch.int32):
         raise TypeError("walk_traceback_batch: best f32, bi/bj int32")
-    dp, b, la = tb.shape
+    b, lb = tb.shape[0], tb.shape[2] - 31
+    if tb.shape != tb_shape(b, la, lb):
+        raise ValueError(f"walk_traceback_batch: tb {tuple(tb.shape)} is not "
+                         f"the layout of a {(la, lb)} shape")
     if not (best.shape == bi.shape == bj.shape == (b,)):
         raise ValueError("walk_traceback_batch: best/bi/bj must be [B]")
     _cuda_inputs("walk_traceback_batch", tb, best, bi, bj)
+    dp = diag_count(la, lb)
     dev = tb.device
     lo_a = torch.empty(b, dtype=torch.int32, device=dev)
     lo_b = torch.empty(b, dtype=torch.int32, device=dev)
@@ -56,15 +64,17 @@ def walk_traceback_batch(tb: torch.Tensor, best: torch.Tensor,
         walk_traceback_batch, "walk_traceback", tb, kernels.ptr(tb),
         kernels.ptr(best), kernels.ptr(bi), kernels.ptr(bj),
         kernels.ptr(lo_a), kernels.ptr(lo_b), kernels.ptr(plen),
-        kernels.ptr(path_rev), b, la, dp)
+        kernels.ptr(path_rev), b, la, lb, dp, 2 * tb.shape[4])
     return lo_a, lo_b, plen, path_rev
 
 
-
 def walk_traceback_batch_ref(tb: torch.Tensor, best: torch.Tensor,
-                             bi: torch.Tensor, bj: torch.Tensor):
-    """Plain version: the masked step of postalign_jax's scan, Dp+1 steps
-    (stopping early once every pair is done: later steps only emit PEND)."""
+                             bi: torch.Tensor, bj: torch.Tensor, la: int):
+    """Plain version: the packed traceback unpacked to the skewed bytes
+    [Dp, B, LA] (0 outside the band), then the masked step of
+    postalign_jax's scan over them, Dp+1 steps (stopping early once every
+    pair is done: later steps only emit PEND)."""
+    tb = unpack_tb(tb, la, tb.shape[2] - 31)
     dp, b, la = tb.shape
     dev = tb.device
     steps = dp + 1
@@ -136,7 +146,6 @@ def lddt_batch(cq: torch.Tensor, ct: torch.Tensor, valid: torch.Tensor,
             kernels.ptr(valid), kernels.ptr(ncols), kernels.ptr(out),
             kernels.ptr(risky), b, m, int(with_risky))
     return (out, risky) if with_risky else out
-
 
 
 def _dist2(c: torch.Tensor) -> torch.Tensor:

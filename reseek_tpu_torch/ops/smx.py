@@ -23,11 +23,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from reseek_tpu.constants import ALPHA_SIZES
-from reseek_tpu.ops.substmx import weighted_matrices
-from reseek_tpu.search.engine import PAD_BYTE, _mu_matrix_padded
+from reseek_tpu_torch.constants import ALPHA_SIZES
+from reseek_tpu_torch.data.tables import get_tables
+from reseek_tpu_torch.ops.substmx import weighted_matrices
 
 NEG = np.float32(-9e9)
+PAD_BYTE = 255         # profile pad marker in the device uint8 profiles
 
 
 @functools.lru_cache(maxsize=4)
@@ -53,7 +54,9 @@ def mu_table() -> np.ndarray:
     36 integer letters, and padding letter 36, which scores NEG/2 against
     everything.  NEG is finite, never inf, so cells next to padding stay
     finite through every add of the sweep."""
-    return _mu_matrix_padded()
+    m = np.full((37, 37), NEG / 2, np.float32)
+    m[:36, :36] = get_tables().mu_score_mx_int8.astype(np.float32)
+    return m
 
 
 def profile_codes(prof: torch.Tensor, offsets: torch.Tensor,

@@ -8,10 +8,11 @@ the JAX package's skewed layout at this public function: tb [Dp, B, LA]
 uint8 with tb[d, b, i] = src | 4*e_pref | 8*f_pref for cell (i, d-i), Dp =
 LA+LB-1 rounded up to 8.  Only cells with 0 <= d-i < LB are defined.
 
-``sw_traceback`` and ``sw_score`` (score only, equal to sw_traceback's
-best bit for bit) launch the CUDA kernels of csrc/sw_traceback.cu on CUDA
-tensors and run ``sw_traceback_ref`` / ``sw_score_ref``, their plain
-versions, on CPU tensors.
+``sw_score`` (score only, equal to sw_traceback_ref's best bit for bit)
+launches the CUDA kernel of csrc/sw_traceback.cu on CUDA tensors and runs
+``sw_score_ref``, its plain version, on CPU tensors.  ``sw_traceback_ref``
+is the plain traceback wavefront; on the card, stage 3 runs
+ops/sw_align.py, which builds its substitution scores in the kernel.
 """
 
 from __future__ import annotations
@@ -41,33 +42,9 @@ def _check(name: str, s: torch.Tensor) -> None:
 
 
 @kernels.counted
-def sw_traceback(s: torch.Tensor, open_: float, ext: float):
-    """s [B, LA, LB] float32 (NEG-padded) -> (best [B] float32, bi [B]
-    int32, bj [B] int32, tb [Dp, B, LA] uint8)."""
-    if s.device.type == "cpu":
-        return sw_traceback_ref(s, open_, ext)
-    _check("sw_traceback", s)
-    b, la, lb = s.shape
-    dp = diag_count(la, lb)
-    dev = s.device
-    best = torch.empty(b, dtype=torch.float32, device=dev)
-    bi = torch.empty(b, dtype=torch.int32, device=dev)
-    bj = torch.empty(b, dtype=torch.int32, device=dev)
-    tb = torch.empty((dp, b, la), dtype=torch.uint8, device=dev)
-    if b == 0:
-        return best, bi, bj, tb
-    kernels.launch(
-        sw_traceback, "sw_traceback", s, kernels.ptr(s), kernels.ptr(best),
-        kernels.ptr(bi), kernels.ptr(bj), kernels.ptr(tb), b, la, lb, dp,
-        float(open_), float(ext))
-    return best, bi, bj, tb
-
-
-
-@kernels.counted
 def sw_score(s: torch.Tensor, open_: float, ext: float) -> torch.Tensor:
     """s [B, LA, LB] float32 (NEG-padded) -> best local score [B] float32
-    (>= 0), bit-equal to sw_traceback's best."""
+    (>= 0), bit-equal to sw_traceback_ref's best."""
     if s.device.type == "cpu":
         return sw_score_ref(s, open_, ext)
     _check("sw_score", s)
@@ -78,7 +55,6 @@ def sw_score(s: torch.Tensor, open_: float, ext: float) -> torch.Tensor:
     kernels.launch(sw_score, "sw_score", s, kernels.ptr(s),
                    kernels.ptr(best), b, la, lb, float(open_), float(ext))
     return best
-
 
 
 def _wavefront_ref(s: torch.Tensor, open_: float, ext: float, trace: bool):

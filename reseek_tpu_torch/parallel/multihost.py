@@ -45,9 +45,13 @@ from typing import List, Optional, TextIO, Tuple
 
 import torch
 
-from reseek_tpu_torch.device import host_cores
+from reseek_tpu_torch.constants import DSSParams
+from reseek_tpu_torch.device import host_cores, resolve
+from reseek_tpu_torch.io.bca import BCAReader
+from reseek_tpu_torch.io.mufasta import iter_mu_fasta
 from reseek_tpu_torch.parallel.mesh import (Mesh, MeshLike, _mesh_shard_ranges,
                                             as_mesh, host_shard_bounds)
+from reseek_tpu_torch.search.prefilter import PrefilterResult
 
 __all__ = ["init_distributed", "global_mesh", "host_shard_bounds",
            "distributed_fast_search", "distributed_prefilter",
@@ -124,19 +128,17 @@ def pin_host_share(rank: int, world: int) -> List[int]:
     return share
 
 
-def global_mesh(device_type: Optional[str] = None) -> Mesh:
+def global_mesh(device_type: str = "cuda") -> Mesh:
     """1-axis mesh of one device per rank, in rank order: rank r's is
     ``cuda:{r % device_count}`` (so on a one-card machine every rank
-    shares cuda:0), or ``cpu``; ``device_type`` defaults to cuda when a
-    card is present.  ``as_mesh`` resolves the devices (naming cuda
-    without a card raises there)."""
+    shares cuda:0), or ``cpu`` when ``device_type`` asks for it.  The
+    devices are resolved here, so cuda without a card raises: the CPU is
+    never a silent substitute."""
     world = _rank_world()[1]
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
     n_cuda = torch.cuda.device_count() if device_type == "cuda" else 0
-    devs = tuple(torch.device("cuda", r % n_cuda) if n_cuda
-                 else torch.device(device_type) for r in range(world))
-    return Mesh(devs, tuple(range(world)))
+    return Mesh(tuple(resolve(torch.device("cuda", r % n_cuda) if n_cuda
+                              else device_type) for r in range(world)),
+                tuple(range(world)))
 
 
 def _rank_world() -> Tuple[int, int]:
@@ -155,7 +157,6 @@ def distributed_prefilter(query_mu, target_mu_shard, shard_lo: int,
     then the merge over the group: the GLOBAL per-query top-B, identical
     on every rank (with no process group, the merge of this shard
     alone)."""
-    from reseek_tpu.search.prefilter import PrefilterResult
     from reseek_tpu_torch.parallel.topk import (merge_topk_distributed,
                                                 shard_lists)
     mesh = as_mesh(mesh)
@@ -201,17 +202,15 @@ def distributed_fast_search(queries, db, options, out: Optional[TextIO],
     db: a .bca path (random-access re-reads, like the reference's
     BCAData::ReadChain) or an in-memory chain list; dbmu: a Mu-letter
     FASTA of the DB for the prefilter.  engine: "device" (the port's
-    engine on this rank's mesh devices), "host", or "auto" (device when
-    CUDA is present).  mesh: default ``global_mesh()``.  out, aln_out:
+    engine on this rank's mesh devices), "host", or "auto" (the device
+    engine).  mesh: default ``global_mesh()``.  out, aln_out:
     rank 0's merged outputs (None elsewhere); with_aln: every rank writes
     alignment blocks to scratch for rank 0 to join.  resume: reuse
     rows.<rank> when its stored fingerprint matches this run.  Returns
     this rank's SearchDriver (counts cover its range) with ``fast_stats``.
     """
-    from reseek_tpu.constants import DSSParams
-    from reseek_tpu.search import driver as host_driver
-    from reseek_tpu.search.driver import SearchDriver, _encode_all
     from reseek_tpu_torch.search import driver as port_driver
+    from reseek_tpu_torch.search import host
 
     t0 = time.perf_counter()
     rank, world = _rank_world()
@@ -221,11 +220,11 @@ def distributed_fast_search(queries, db, options, out: Optional[TextIO],
         raise ValueError(f"mesh ranks {mesh.ranks}: every one of the "
                          f"{world} ranks needs the same number of positions")
     if engine == "auto":
-        engine = "device" if torch.cuda.is_available() else "host"
+        engine = "device"
     if engine not in ("device", "host"):
         raise ValueError(f"unknown engine {engine!r}")
     sens = DSSParams.create("sensitive")
-    q_ecs = _encode_all(list(queries), sens, with_self_rev=False)
+    q_ecs = host._encode_all(list(queries), sens, with_self_rev=False)
     q_mu = [ec.mu_letters for ec in q_ecs]
     nq = len(q_ecs)
     db_is_path = isinstance(db, str)
@@ -233,7 +232,6 @@ def distributed_fast_search(queries, db, options, out: Optional[TextIO],
         raise ValueError("multi-process -fast reads the DB by index: give "
                          "a .bca file")
     if db_is_path:
-        from reseek_tpu.io.bca import BCAReader
         with BCAReader(db) as r:
             n_targets = len(r)
     else:
@@ -266,10 +264,8 @@ def distributed_fast_search(queries, db, options, out: Optional[TextIO],
     # 2-3: prefilter of this rank's shards, merged over the group
     def shard_mu(lo, hi):
         if dbmu is not None:
-            from reseek_tpu.io.mufasta import iter_mu_fasta
             return [m for _l, m in iter_mu_fasta(dbmu)][lo:hi]
         if db_is_path:
-            from reseek_tpu.io.bca import BCAReader
             with BCAReader(db) as r:
                 chains = [r.read_chain(t) for t in range(lo, hi)]
         else:
@@ -290,7 +286,6 @@ def distributed_fast_search(queries, db, options, out: Optional[TextIO],
 
     def survivor_chains():
         if db_is_path:
-            from reseek_tpu.io.bca import BCAReader
             with BCAReader(db) as r:
                 for t in tidxs:
                     yield t, r.read_chain(t)
@@ -304,7 +299,7 @@ def distributed_fast_search(queries, db, options, out: Optional[TextIO],
     wrappers = kernel_wrappers()
     before = {k: w.launches for k, w in wrappers.items()}
     if reuse:
-        drv = SearchDriver(sens, options, None)
+        drv = host.SearchDriver(sens, options, None)
         drv.hit_count = int(stored["hits"])
     else:
         for fn in (fp_fn, rows_fn, aln_fn):   # a stale set never survives
@@ -315,14 +310,14 @@ def distributed_fast_search(queries, db, options, out: Optional[TextIO],
             opts = dataclasses.replace(options, aln_out=(
                 files.enter_context(open(aln_fn + ".tmp", "w"))
                 if with_aln else None))
-            drv = SearchDriver(sens, opts, rows_out)
+            drv = host.SearchDriver(sens, opts, rows_out)
             if engine == "device":
                 port_driver._fast_align_device(
                     drv, q_ecs, survivor_chains(), t2q, sens, opts, None,
                     stats, mesh.local(rank))
             else:
-                host_driver._fast_align_host(drv, q_ecs, survivor_chains(),
-                                             t2q, sens)
+                host._fast_align_host(drv, q_ecs, survivor_chains(), t2q,
+                                      sens)
         if with_aln:
             os.replace(aln_fn + ".tmp", aln_fn)
         os.replace(rows_fn + ".tmp", rows_fn)

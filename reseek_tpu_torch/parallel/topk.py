@@ -28,6 +28,7 @@ import torch
 
 from reseek_tpu_torch.device import host_cores
 from reseek_tpu_torch.parallel.mesh import MeshLike, as_mesh, shard_bounds
+from reseek_tpu_torch.search.prefilter import MuPrefilter, PrefilterResult
 
 PAD_SCORE = np.int32(-(1 << 30))
 PAD_INDEX = np.int32(2**31 - 1)
@@ -132,7 +133,6 @@ def shard_lists(query_mu, target_mu, lo: int, parts: int, top_b: int,
     alone: (per shard its [nq, top_b] scores, per shard its target
     indices), padded.  The scans run on the cores this process may use (a
     rank's share)."""
-    from reseek_tpu.search.prefilter import MuPrefilter
     b = shard_bounds(len(target_mu), parts)
     sv, ti = [], []
     for d in range(parts):
@@ -157,7 +157,6 @@ def sharded_prefilter_search(query_mu, target_mu_list, mesh: MeshLike,
     """DB-sharded prefilter in one process: contiguous target shards, one
     per mesh position, each scanned with the native prefilter, then
     merged.  The selection equals the single-shard prefilter_search's."""
-    from reseek_tpu.search.prefilter import PrefilterResult
     mesh = as_mesh(mesh)
     return PrefilterResult(query_targets=merge_topk_sharded(
         mesh, axis, *shard_lists(query_mu, target_mu_list, 0, mesh.size,

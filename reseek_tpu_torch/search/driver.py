@@ -4,9 +4,12 @@ pipeline ``fast_search``, each with its device branch on the port's engine
 (search/engine.py).
 
 The host layer (encode, the Mu prefilter, PairAligner, SearchDriver, emit,
-the native MKF and exact-SW kernels, the host per-pair paths) is
-reseek_tpu's own; this module only swaps the device engine for the
-port's.  ``mesh`` (parallel/mesh.py: a Mesh or a sequence of devices)
+the native MKF and exact-SW kernels) is the port's copy of reseek_tpu's,
+and ``engine="host"`` runs the per-pair host engine of search/host.py,
+which the device engine is held to byte for byte.  ``engine="auto"`` is
+the device engine: on ``device`` (default "cuda", which raises without a
+card) or on the devices of ``mesh``; the host engine runs only when it is
+asked for.  ``mesh`` (parallel/mesh.py: a Mesh or a sequence of devices)
 deals the engine's work over several devices with identical output; on
 the host and -global paths it is ignored, with a warning, as in
 reseek_tpu.
@@ -25,18 +28,19 @@ from typing import Dict, Iterable, List, Optional, TextIO
 import numpy as np
 import torch
 
-from reseek_tpu.align.pipeline import FLT_MAX, EncodedChain, self_rev_score
-from reseek_tpu.chain import Chain
-from reseek_tpu.constants import DSSParams
-from reseek_tpu.encoder.dss import encode_chain
-from reseek_tpu.search import driver as host_driver
-from reseek_tpu.search.driver import (SearchDriver, SearchOptions,
-                                      _encode_all, _fwd_displayed,
-                                      _maybe_trace)
-from reseek_tpu.search.prefilter import prefilter_search
+from reseek_tpu_torch.align.pipeline import (FLT_MAX, EncodedChain,
+                                             self_rev_score)
+from reseek_tpu_torch.chain import Chain
+from reseek_tpu_torch.constants import DSSParams
 from reseek_tpu_torch.device import DeviceLike, host_cores, resolve
+from reseek_tpu_torch.encoder.dss import encode_chain
 from reseek_tpu_torch.parallel.mesh import MeshLike, as_mesh
+from reseek_tpu_torch.search import host
 from reseek_tpu_torch.search.engine import DeviceSelfSearch
+from reseek_tpu_torch.search.host import (SearchDriver, SearchOptions,
+                                          _encode_all, _fwd_displayed,
+                                          _maybe_trace)
+from reseek_tpu_torch.search.prefilter import prefilter_search
 
 
 def _pool() -> ThreadPoolExecutor:
@@ -46,12 +50,12 @@ def _pool() -> ThreadPoolExecutor:
 
 
 def _engine_for(name: str, engine: str, mesh, host_only: bool) -> str:
-    """The engine to run: "auto" is "device" on CUDA when a card is
-    present or a mesh is given, else "host"; warns when a mesh is given
-    but the run takes a host path (``host_only``: -global)."""
+    """The engine to run: "auto" is "device" (whose device, by default
+    "cuda", raises without a card: the host engine is never a silent
+    substitute); warns when a mesh is given but the run takes a host path
+    (``host_only``: -global)."""
     if engine == "auto":
-        engine = ("device" if torch.cuda.is_available() or mesh is not None
-                  else "host")
+        engine = "device"
     if engine not in ("device", "host"):
         raise ValueError(f"unknown engine {engine!r}")
     if mesh is not None and (engine != "device" or host_only):
@@ -80,18 +84,16 @@ def self_search(chains: List[Chain], params: DSSParams,
 
     engine: "device" runs the port's engine on ``device`` (default
     "cuda", which raises without a card), or on the devices of ``mesh``;
-    "host" runs reseek_tpu's per-pair host path; "auto" is "device" on
-    CUDA when a card is present or a mesh is given, else "host".  -global
-    (options.global_aln) runs reseek_tpu's host global path whatever the
-    engine, as reseek_tpu does.  With the device engine the returned
-    driver carries ``device_stats``: host-clock walls of encode, stage 1,
-    stage 3 and the host finish (``*_s``) and the stage-1 survivor
-    count."""
+    "auto" is "device"; "host" runs the per-pair host engine
+    (search/host.py).  -global (options.global_aln) runs the host global
+    path whatever the engine, as reseek_tpu does.  With the device engine
+    the returned driver carries ``device_stats``: host-clock walls of
+    encode, stage 1, stage 3 and the host finish (``*_s``) and the stage-1
+    survivor count."""
     mesh = as_mesh(mesh)
     engine = _engine_for("self_search", engine, mesh, options.global_aln)
     if engine == "host" or options.global_aln:
-        return host_driver.self_search(chains, params, options, out,
-                                       engine="host")
+        return host.self_search(chains, params, options, out)
     return _self_search_device(chains, params, options, out,
                                resolve(device) if mesh is None else None,
                                mesh)
@@ -191,15 +193,14 @@ def query_search(queries: Iterable[Chain], db_chains, params: DSSParams,
     side runs in chunks of ``chunk_size`` chains (default
     $RESEEK_QUERY_CHUNK or 4096), so memory stays proportional to the
     queries plus one chunk.  engine, device and mesh as in
-    ``self_search``; "host" runs reseek_tpu's per-pair host path."""
+    ``self_search``."""
     mesh = as_mesh(mesh)
     engine = _engine_for("query_search", engine, mesh, False)
     if engine == "host":
-        return host_driver.query_search(queries, db_chains, params, options,
-                                        out, engine="host")
+        return host.query_search(queries, db_chains, params, options, out)
     dev = resolve(device) if mesh is None else None
     if isinstance(db_chains, str):
-        from reseek_tpu.io.reader import iter_chains
+        from reseek_tpu_torch.io.reader import iter_chains
         db_iter = (c for c in iter_chains(db_chains) if len(c) > 0)
     else:
         db_iter = iter(db_chains)
@@ -323,7 +324,7 @@ def fast_search(queries: List[Chain], db, params: DSSParams,
                 device: DeviceLike = None, mesh: MeshLike = None,
                 prefilter_mode: Optional[str] = None) -> SearchDriver:
     """The big-DB prefilter pipeline (-fast -db, src/search.cpp:62-112):
-    (1) reseek_tpu's Mu k-mer prefilter streams the whole DB and keeps the
+    (1) the Mu k-mer prefilter streams the whole DB and keeps the
     top-1500 targets per query; (2) only the surviving targets are re-read
     (random access for .bca, a second pass otherwise) and aligned with
     SENSITIVE parameters (PostMuFilter, src/postmufilter.cpp:116-208; one
@@ -333,22 +334,22 @@ def fast_search(queries: List[Chain], db, params: DSSParams,
     DB, so stage 1 skips encoding it (-dbmu); prefilter_mode: None,
     "idxq" or "idxt" as in reseek_tpu.  engine "device" aligns the
     candidates on the port's engine (on ``device``, or dealt over the
-    devices of ``mesh``); "host" runs reseek_tpu's fast_search host path;
-    "auto" takes the device when CUDA is present or a mesh is given and
-    there are at least $RESEEK_FAST_DEVICE_MIN (20,000) candidate pairs,
-    else reseek_tpu's host stage 2 (reseek_tpu's own rule: small
-    candidate sets finish sooner on the host).  The returned driver
-    carries ``fast_stats``: candidates, survivors read, wall of each
-    stage."""
+    devices of ``mesh``); "host" runs the host engine's fast_search;
+    "auto" needs the device as "device" does, and aligns on the device
+    engine from $RESEEK_FAST_DEVICE_MIN (20,000) candidate pairs, below
+    that on the host stage 2 (reseek_tpu's own rule: small candidate sets
+    finish sooner on the host).  The returned driver carries ``fast_stats``: candidates,
+    survivors read, wall of each stage."""
     mesh = as_mesh(mesh)
     if engine == "host":
         _engine_for("fast_search", engine, mesh, False)
-        return host_driver.fast_search(queries, db, params, options, out,
-                                       dbmu=dbmu, engine="host",
-                                       prefilter_mode=prefilter_mode)
+        return host.fast_search(queries, db, params, options, out,
+                                dbmu=dbmu, prefilter_mode=prefilter_mode)
     if engine not in ("auto", "device"):
         raise ValueError(f"unknown engine {engine!r}")
-    dev = resolve(device) if engine == "device" and mesh is None else None
+    # "auto" and "device" both need the device (cuda raises without a
+    # card), whichever stage 2 the candidate count picks below
+    dev = resolve(device) if mesh is None else None
     t0 = time.perf_counter()
     sens = DSSParams.create("sensitive")
     # queries encode once with sensitive params (Mu letters do not depend
@@ -360,12 +361,12 @@ def fast_search(queries: List[Chain], db, params: DSSParams,
     def target_mu_stream():
         nonlocal n_targets
         if dbmu is not None:
-            from reseek_tpu.io.mufasta import iter_mu_fasta
+            from reseek_tpu_torch.io.mufasta import iter_mu_fasta
             for i, (_label, letters) in enumerate(iter_mu_fasta(dbmu)):
                 n_targets = i + 1
                 yield i, letters
         elif db_is_path:
-            from reseek_tpu.io.reader import iter_chains
+            from reseek_tpu_torch.io.reader import iter_chains
             for i, mu in enumerate(_mu_letters(
                     c for c in iter_chains(db) if len(c) > 0)):
                 n_targets = i + 1
@@ -391,13 +392,13 @@ def fast_search(queries: List[Chain], db, params: DSSParams,
         if db_is_path and db.lower().endswith(".bca"):
             # random access by index, like PostMuFilter's
             # BCAData::ReadChain (src/postmufilter.cpp:164)
-            from reseek_tpu.io.bca import BCAReader
+            from reseek_tpu_torch.io.bca import BCAReader
             with BCAReader(db) as r:
                 for tidx in tidxs:
                     yield tidx, r.read_chain(tidx)
         elif db_is_path:
             # formats without random access: one more sequential pass
-            from reseek_tpu.io.reader import iter_chains
+            from reseek_tpu_torch.io.reader import iter_chains
             want = set(tidxs)
             idx = 0
             for c in iter_chains(db):
@@ -414,18 +415,15 @@ def fast_search(queries: List[Chain], db, params: DSSParams,
     if engine == "auto":
         min_dev = int(os.environ.get("RESEEK_FAST_DEVICE_MIN", "20000"))
         engine = _engine_for(
-            "fast_search", "auto" if n_cand >= min_dev else "host", mesh,
+            "fast_search", "device" if n_cand >= min_dev else "host", mesh,
             False)
-        dev = (resolve(device) if engine == "device" and mesh is None
-               else None)
     stats: Dict[str, float] = {"candidates": n_cand,
                                "targets_read": len(tidxs)}
     if engine == "device":
         _fast_align_device(drv, q_ecs, survivor_chains(), t2q, sens,
                            options, dev, stats, mesh)
     else:
-        host_driver._fast_align_host(drv, q_ecs, survivor_chains(), t2q,
-                                     sens)
+        host._fast_align_host(drv, q_ecs, survivor_chains(), t2q, sens)
     drv.processed_pairs = len(q_ecs) * n_targets
     drv.fast_stats = {"engine": engine, "prefilter_s": t_pf - t0,
                       "align_s": time.perf_counter() - t_pf, **stats}

@@ -15,10 +15,11 @@ query-vs-DB and the -fast pipeline's stage 2.
     tensor of each pair swept by the float row sweep, or by the bit-exact
     wavefront (``exact``, e.g. the self-reversal scores against reversed
     profiles); it serves the optional prepasses of ``align_survivors``;
-  - stage 3 on the survivors: profile substitution tensor (gather-sum),
-    SW with traceback (ops/sw_wavefront.py), the backward walk, the
-    aligned-column coordinate gather and LDDT (ops/postalign.py); the
-    per-pair results and uint8 path codes come back;
+  - stage 3 on the survivors: SW with traceback on the pairs' profiles,
+    substitution scores built in the kernel (ops/sw_align.py), the
+    backward walk, the aligned-column coordinate gather and LDDT
+    (ops/postalign.py); the per-pair results and uint8 path codes come
+    back;
   - TS/P/E on the host in reference float32 order, with the display-band
     checks that send boundary pairs to the exact host kernels.
 
@@ -42,6 +43,7 @@ results.
 from __future__ import annotations
 
 import copy
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
@@ -49,26 +51,156 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from reseek_tpu.align.pipeline import (AlignResult, EncodedChain,
-                                       _path_positions)
-from reseek_tpu.constants import DSSParams, StatSig
-from reseek_tpu.encoder.dss import encode_chain
-from reseek_tpu.ops.lddt import lddt_mu_fast
-from reseek_tpu.search.engine import (MU_SAT_LIMIT, MU_SAT_REV_SCORE,
-                                      MU_SAT_SCORE, PAD_BYTE, STAGE1_CELLS,
-                                      STAGE2_CELLS, STAGE2_GUARD,
-                                      STAGE3_CELLS, _E_PREPASS_MIN,
-                                      _PATH_CHARS, _batch_shape, _edges_for,
-                                      _exact_fwd_score, _rect_edges,
-                                      _vector_stats)
+from reseek_tpu_torch.align.pipeline import (FLT_MAX, MU_SAT_LIMIT,
+                                             MU_SAT_REV_SCORE, MU_SAT_SCORE,
+                                             AlignResult, EncodedChain,
+                                             _path_positions, _ts_value)
+from reseek_tpu_torch.constants import SCOP40C_DBSIZE, DSSParams, StatSig
 from reseek_tpu_torch.device import DeviceLike, host_cores, resolve
+from reseek_tpu_torch.encoder.dss import encode_chain
+from reseek_tpu_torch.ops.lddt import lddt_mu_fast
 from reseek_tpu_torch.ops.postalign import (PD, PI, PM, lddt_batch,
                                             walk_traceback_batch)
-from reseek_tpu_torch.ops.smx import (flat_layout, mu_table, profile_codes,
-                                      profile_smx)
+from reseek_tpu_torch.ops.smx import (PAD_BYTE, flat_layout, mu_table,
+                                      profile_codes, profile_smx)
+from reseek_tpu_torch.ops.sw_align import FeatureTable, sw_align
 from reseek_tpu_torch.ops.sw_sweep import mu_sw_scores, sw_score_sweep
-from reseek_tpu_torch.ops.sw_wavefront import sw_score, sw_traceback
+from reseek_tpu_torch.ops.sw_wavefront import sw_score
 from reseek_tpu_torch.parallel.mesh import MeshLike, as_mesh
+
+# Cell budgets of the per-launch device batches (DP cells per launch);
+# environment-overridable to shrink peak device memory.
+STAGE1_CELLS = int(os.environ.get("RESEEK_STAGE1_CELLS", str(1 << 28)))
+STAGE2_CELLS = int(os.environ.get("RESEEK_STAGE2_CELLS", str(1 << 27)))
+STAGE3_CELLS = int(os.environ.get("RESEEK_STAGE3_CELLS", str(1 << 26)))
+# Stage 2 (score-only prepass) uses the row-sweep kernel, whose float
+# summation order differs from the reference wavefront by at most ~1e-3
+# on real profiles; the guard band keeps every pair that could exactly
+# pass MinFwdScore in stage 3, where the bit-exact kernel re-gates.
+STAGE2_GUARD = np.float32(0.5)
+EDGE_SET = (128, 256, 512, 1024, 2048, 4096, 8192)
+_PATH_CHARS = np.zeros(4, np.uint8)
+_PATH_CHARS[1:4] = [ord("M"), ord("D"), ord("I")]
+
+
+def _E_PREPASS_MIN() -> int:
+    """Survivor count above which align_survivors runs the E-bound
+    score-only prepass; 0 (the default) disables it.  Its LDDT <= 1 bound
+    is loose when forward scores are high (homolog-dense sets), so it is
+    opt-in (RESEEK_E_PREPASS_MIN=N) for sparse-hit workloads where most
+    survivors fail the E-gate on fwd alone."""
+    return int(os.environ.get("RESEEK_E_PREPASS_MIN", "0"))
+
+
+def _edges_for(params: DSSParams, lmax: int) -> Tuple[int, ...]:
+    """Bucket edges: EDGE_SET trimmed to lmax.  The device/host (full-SW
+    vs MKF) routing boundary is not an edge: the sorted-by-length layout
+    makes the device-eligible chains a contiguous prefix (clamped per
+    bucket via dev_end)."""
+    edges = sorted(e for e in EDGE_SET if e < lmax * 2)
+    while edges and edges[-1] < lmax:
+        edges.append(edges[-1] * 2)
+    if not edges:
+        edges = [-(-max(lmax, 8) // 128) * 128]
+    out = []
+    for e in edges:
+        out.append(e)
+        if e >= lmax:
+            break
+    return tuple(out)
+
+
+def _batch_shape(n: int, le: int, cells: int, multiple: int = 1,
+                 le_b: Optional[int] = None) -> int:
+    """Per-launch batch size: the cell budget capped, but no larger than
+    the next power of two >= n.  le_b gives the second edge of a
+    rectangular shape (default: square)."""
+    cap = max(8, cells // (le * (le_b if le_b is not None else le)))
+    p = 8
+    while p < n:
+        p *= 2
+    bs = min(cap, p)
+    return -(-bs // multiple) * multiple
+
+
+def _rect_edges(ea: np.ndarray, eb: np.ndarray
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-pair DP shape: rectangular (A edge x B edge) when the sides
+    differ by >= 2x, else the larger edge's square.  RESEEK_RECT=0 forces
+    all-square."""
+    emax = np.maximum(ea, eb)
+    if os.environ.get("RESEEK_RECT", "1") == "0":
+        return emax, emax
+    rect = emax >= 2 * np.minimum(ea, eb)
+    return (np.where(rect, ea, emax).astype(ea.dtype),
+            np.where(rect, eb, emax).astype(eb.dtype))
+
+
+def _exact_fwd_score(params: DSSParams, prof_a: np.ndarray,
+                     prof_b: np.ndarray) -> float:
+    """Bit-exact full-profile SW score on the host (native kernel,
+    numpy replica fallback): the boundary-case recompute path."""
+    from reseek_tpu_torch.ops.sw_native import sw_score_profile_native
+    v = sw_score_profile_native(params, prof_a, prof_b)
+    if v is not None:
+        return v
+    from reseek_tpu_torch.ops.substmx import build_smx
+    from reseek_tpu_torch.ops.sw_np import sw_score as sw_score_np
+    return sw_score_np(build_smx(params, prof_a, prof_b),
+                       params.gap_open, params.gap_ext)
+
+
+def _vector_stats(fwd: np.ndarray, lddt: np.ndarray, sa: np.ndarray,
+                  sb: np.ndarray, la: np.ndarray, lb: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Vectorized TS/P/E in the reference's float32 order
+    (src/dssaligner.cpp:883-902 + src/statsig.cpp:27-50)."""
+    f32 = np.float32
+    have = (sa != FLT_MAX) & (sb != FLT_MAX)
+    rev_dp = np.where(have, (sa.astype(f32) + sb.astype(f32)) / f32(2),
+                      f32(0.0)).astype(f32)
+    ts = _ts_value(lddt.astype(f32), fwd.astype(f32), rev_dp, la, lb)
+    tsd = ts.astype(np.float64)
+    log10p = np.where(tsd < StatSig.X1, StatSig.M0 * tsd + StatSig.C0,
+                      StatSig.M * tsd + StatSig.C)
+    p = np.minimum(np.power(10.0, log10p), 1.0)
+    return ts, p, p * SCOP40C_DBSIZE
+
+
+def _finish_from_lddt(res: AlignResult, q: EncodedChain, t: EncodedChain,
+                      p: DSSParams, lddt: float) -> None:
+    """TS/P/E from a precomputed LDDT, float32 order of
+    src/dssaligner.cpp:852-904."""
+    n_m = res.path.count("M")
+    n_d = res.path.count("D")
+    n_i = res.path.count("I")
+    res.hi_a = res.lo_a + n_m + n_d - 1
+    res.hi_b = res.lo_b + n_m + n_i - 1
+    res.ids = n_m
+    res.gaps = n_d + n_i
+    res.lddt = lddt
+    sa, sb = q.self_rev_score, t.self_rev_score
+    if sa != FLT_MAX and sb != FLT_MAX:
+        rev_dp = np.float32(np.float32(sa) + np.float32(sb)) / np.float32(2)
+    else:
+        rev_dp = np.float32(0.0)
+    res.ts = float(_ts_value(np.float32(res.lddt),
+                             np.float32(res.fwd_score), rev_dp,
+                             len(q), len(t)))
+    res.pvalue = StatSig.pvalue(res.ts)
+    res.evalue = StatSig.evalue(res.ts)
+    res.qual = StatSig.qual(res.ts)
+
+
+def finish_result(res: AlignResult, q: EncodedChain, t: EncodedChain,
+                  p: DSSParams) -> None:
+    """LDDT and TS/P/E of a host alignment with a path (the MKF route's
+    finish)."""
+    if res.fwd_score < p.min_fwd_score:
+        return
+    pos_q, pos_t = _path_positions(res.lo_a, res.lo_b, res.path)
+    lddt = lddt_mu_fast(q.chain.coords, t.chain.coords, pos_q, pos_t)
+    _finish_from_lddt(res, q, t, p, lddt)
 
 
 def _f32(x: float) -> float:
@@ -190,6 +322,8 @@ class DeviceSelfSearch:
         self.offsets = put(offsets, torch.int64)
         self.mumx = put(mumx, torch.float32)
         self.pad_code = int(self.w.shape[0]) - 1
+        # W's per-feature blocks, the stage-3 kernel's tables
+        self.table = FeatureTable.build(self.w, self.offsets)
         self.prof_rev: Optional[torch.Tensor] = None
         # host-clock walls of the last stage-1 call, stage-2 prepass and
         # align_survivors, each read after every device has finished (see
@@ -206,6 +340,7 @@ class DeviceSelfSearch:
                 for name in ("prof", "mu", "mu_rev", "coords", "w",
                              "offsets", "mumx"):
                     setattr(v, name, getattr(self, name).to(d))
+                v.table = self.table.to(d)
         self._views = ([views[d] for d in self.mesh.devices]
                        if self.mesh is not None else [self])
         for v in views.values():
@@ -535,7 +670,8 @@ class DeviceSelfSearch:
                    ib: torch.Tensor,
                    prof_b: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Profile substitution tensor [n, lea, leb] of sorted-index pairs
-        (ia, ib); the B side from ``prof_b`` (default: the profiles)."""
+        (ia, ib); the B side from ``prof_b`` (default: the profiles).  For
+        stage 2; stage 3 builds its scores in the kernel."""
         prof_b = self.prof if prof_b is None else prof_b
         ca = profile_codes(self.prof[ia, :, :lea], self.offsets,
                            self.pad_code)
@@ -545,15 +681,15 @@ class DeviceSelfSearch:
 
     def _stage3_chunk(self, lea: int, leb: int, ia: torch.Tensor,
                       ib: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Full-profile SW with traceback, backward walk, aligned-column
-        coordinate gather and LDDT for sorted-index pairs (ia, ib) with
-        DP shape [lea, leb]."""
+        """Full-profile SW with traceback (scores built from the profiles
+        in the kernel: no [n, lea, leb] tensor), backward walk,
+        aligned-column coordinate gather and LDDT for sorted-index pairs
+        (ia, ib) with DP shape [lea, leb]."""
         p = self.params
-        s = self.stage3_smx(lea, leb, ia, ib)
-        best, bi, bj, tb = sw_traceback(s, float(p.gap_open),
-                                        float(p.gap_ext))
-        del s
-        lo_a, lo_b, plen, path_rev = walk_traceback_batch(tb, best, bi, bj)
+        best, bi, bj, tb = sw_align(self.prof, ia, ib, self.table, lea, leb,
+                                    float(p.gap_open), float(p.gap_ext))
+        lo_a, lo_b, plen, path_rev = walk_traceback_batch(tb, best, bi, bj,
+                                                          lea)
         del tb
         cq, ct, valid, n_m = aligned_coords(path_rev, bi, bj, ia, ib,
                                             self.coords, min(lea, leb))

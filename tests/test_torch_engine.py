@@ -19,7 +19,7 @@ from reseek_tpu.search.engine import _exact_fwd_score, _mu_matrix_padded
 from reseek_tpu_torch.ops.postalign import walk_traceback_batch
 from reseek_tpu_torch.ops.smx import (flat_layout, mu_table, profile_codes,
                                       profile_smx)
-from reseek_tpu_torch.ops.sw_wavefront import sw_traceback
+from reseek_tpu_torch.ops.sw_align import sw_align
 from reseek_tpu_torch.search.engine import DeviceSelfSearch, aligned_coords
 
 Q100 = os.path.join(os.path.dirname(__file__), "golden", "q100.cal")
@@ -126,9 +126,9 @@ def test_aligned_coords_follow_the_path(setup):
     params, ecs, _, port = setup
     ia = torch.tensor([2, 5, 9])
     ib = torch.tensor([4, 5, 10])
-    s = port.stage3_smx(512, 512, ia, ib)
-    best, bi, bj, tb = sw_traceback(s, params.gap_open, params.gap_ext)
-    lo_a, lo_b, plen, path_rev = walk_traceback_batch(tb, best, bi, bj)
+    best, bi, bj, tb = sw_align(port.prof, ia, ib, port.table, 512, 512,
+                                params.gap_open, params.gap_ext)
+    lo_a, lo_b, plen, path_rev = walk_traceback_batch(tb, best, bi, bj, 512)
     cq, ct, valid, n_m = aligned_coords(path_rev, bi, bj, ia, ib,
                                         port.coords, 512)
     chars = np.array([0, ord("M"), ord("D"), ord("I")], np.uint8)

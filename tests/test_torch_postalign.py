@@ -21,6 +21,7 @@ from reseek_tpu.ops.sw_pallas import sw_traceback_pallas
 from reseek_tpu_torch.ops.postalign import (lddt_batch, lddt_batch_ref,
                                             walk_traceback_batch,
                                             walk_traceback_batch_ref)
+from reseek_tpu_torch.ops.sw_align import pack_tb
 
 Q100 = os.path.join(os.path.dirname(__file__), "golden", "q100.cal")
 LDDT_TOL = 1e-6
@@ -41,8 +42,10 @@ def test_walk_matches_jax(seed, integer):
     s[0] = -1.0      # no positive cell: empty path
     best, bi, bj, tb = sw_traceback_pallas(jnp.asarray(s), -1.5, -0.25)
     want = postalign_jax.walk_traceback_batch(tb, best, bi, bj)
+    # the port's walk reads the packed layout of its stage-3 kernel
+    packed = pack_tb(torch.from_numpy(np.array(tb)), la, lb)
     got = walk_traceback_batch_ref(
-        *(torch.from_numpy(np.array(x)) for x in (tb, best, bi, bj)))
+        packed, *(torch.from_numpy(np.array(x)) for x in (best, bi, bj)), la)
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w))
     assert got[2][0] == 0

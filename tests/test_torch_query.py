@@ -17,9 +17,10 @@ from reseek_tpu.io.bca import BCAWriter
 from reseek_tpu.io.cal import write_cal
 from reseek_tpu.io.reader import read_chains
 from reseek_tpu.search import driver as tpu_driver
-from reseek_tpu.search.driver import SearchOptions, _encode_all
+from reseek_tpu.search.driver import SearchOptions
 from reseek_tpu.search.prefilter import prefilter_search
 from reseek_tpu_torch.search import driver as torch_driver
+from reseek_tpu_torch.search.host import _encode_all as port_encode_all
 
 from test_torch_search import COLUMNS, Q100, ROOT
 
@@ -126,9 +127,10 @@ def test_fast_search_matches_host(chains, fast_host, tmp_path, db, mode):
             for c in chains:
                 w.write_chain(c)
     else:
+        # pre-encoded chains are the port's own EncodedChain
         src = (chains[:50]
-               + _encode_all(chains[50:], DSSParams.create("sensitive"),
-                             with_self_rev=False))
+               + port_encode_all(chains[50:], DSSParams.create("sensitive"),
+                                 with_self_rev=False))
     got, drv = _fast(torch_driver.fast_search, chains, src, mode,
                      engine="device", device="cpu")
     assert got == fast_host[mode] and got.count("\n") > 10
@@ -141,7 +143,8 @@ def test_fast_search_matches_host(chains, fast_host, tmp_path, db, mode):
 def test_fast_search_dbmu_and_auto(chains, tmp_path):
     """-dbmu feeds the prefilter from a Mu FASTA; auto routing keeps
     reseek_tpu's rule (host stage 2 below RESEEK_FAST_DEVICE_MIN
-    candidates, or without a card)."""
+    candidates) on the device it is given, and without a card raises
+    unless that device is the CPU."""
     mufa = tmp_path / "db.mu.fa"
     with open(mufa, "w") as f:
         for c in chains:
@@ -152,8 +155,11 @@ def test_fast_search_dbmu_and_auto(chains, tmp_path):
     got, drv = _fast(torch_driver.fast_search, chains, Q100, engine="device",
                      device="cpu", dbmu=str(mufa))
     assert got == want
-    auto, drv = _fast(torch_driver.fast_search, chains, Q100)
+    auto, drv = _fast(torch_driver.fast_search, chains, Q100, device="cpu")
     assert auto == want
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            _fast(torch_driver.fast_search, chains, Q100)
     assert drv.fast_stats["engine"] == (
         "device" if torch.cuda.is_available()
         and drv.fast_stats["candidates"] >= 20000 else "host")

@@ -1,6 +1,7 @@
-"""Port's traceback wavefront (reseek_tpu_torch/ops/sw_wavefront.py)
-against the JAX package's Pallas kernel (interpret mode on the CPU) and
-its lax.scan wavefront, on tie-prone inputs.  best/bi/bj are exact; tb
+"""Port's traceback wavefront (reseek_tpu_torch/ops/sw_wavefront.py, the
+plain version inside the stage-3 entry ops/sw_align.py) against the JAX
+package's Pallas kernel (interpret mode on the CPU) and its lax.scan
+wavefront, on tie-prone inputs.  best/bi/bj are exact; tb
 bytes are exact over the valid band 0 <= d-i < LB."""
 
 import jax.numpy as jnp
@@ -11,8 +12,10 @@ import torch
 from reseek_tpu.ops.sw_jax import sw_traceback_batch, walk_traceback
 from reseek_tpu.ops.sw_np import NEG, sw_align
 from reseek_tpu.ops.sw_pallas import sw_traceback_pallas
-from reseek_tpu_torch.ops.sw_wavefront import (diag_count, sw_traceback,
-                                               sw_traceback_ref)
+from reseek_tpu_torch.ops.smx import flat_layout
+from reseek_tpu_torch.ops.sw_align import FeatureTable, sw_align_ref
+from reseek_tpu_torch.ops.sw_align import sw_align as sw_align_profiles
+from reseek_tpu_torch.ops.sw_wavefront import diag_count, sw_traceback_ref
 
 # the test workers share the host's cores: one torch thread each keeps the
 # plain versions' many small ops from contending for them
@@ -87,10 +90,15 @@ def test_no_positive_cell():
 
 
 def test_wrapper_on_cpu_runs_plain_version():
+    """The stage-3 wrapper (profiles in, the traceback kernel's entry) on
+    CPU tensors runs its plain version and counts no launch."""
     rng = np.random.default_rng(4)
-    s, _, _ = _random_batch(rng, 3, 12, 20, integer=True)
-    before = sw_traceback.launches
-    got = sw_traceback(torch.from_numpy(s), -1.5, -0.25)
-    want = sw_traceback_ref(torch.from_numpy(s), -1.5, -0.25)
-    assert sw_traceback.launches == before
+    off, _, w = flat_layout(("AA", "Conf"), (0.6, 0.4))
+    table = FeatureTable.build(torch.from_numpy(w), torch.from_numpy(off))
+    prof = torch.from_numpy(rng.integers(0, 16, (3, 2, 20)).astype(np.uint8))
+    ia, ib = torch.tensor([0, 1, 2]), torch.tensor([2, 0, 1])
+    before = sw_align_profiles.launches
+    got = sw_align_profiles(prof, ia, ib, table, 12, 20, -1.5, -0.25)
+    want = sw_align_ref(prof, ia, ib, table, 12, 20, -1.5, -0.25)
+    assert sw_align_profiles.launches == before
     assert all(torch.equal(x, y) for x, y in zip(got, want))
