@@ -3,7 +3,9 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --kernels   # phases 0-2 only
+    python3 chip_smoke.py --stage1    # phases 0-1, the replica's stage 1
 
 Phases, in order; any failure exits non-zero and prints no result:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -67,6 +69,7 @@ byte-equal to reseek_tpu's.
 
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -98,12 +101,12 @@ TEN = list(range(10))
 # kernel -> (CUDA source, the TPU kernel or JAX scan it replaces, the run
 # that must launch it)
 KERNELS = {
-    "mu_sweep": ("reseek_tpu_torch/csrc/mu_sweep.cu",
+    "mu_sweep": ("reseek_tpu_torch/csrc/mu_wavefront.cu",
                  "reseek_tpu/ops/sw_sweep.py:327", "q100"),
     "sw_score_sweep": ("reseek_tpu_torch/csrc/mu_sweep.cu",
                        "reseek_tpu/ops/sw_sweep.py:206", "query_prepass"),
-    "sw_traceback": ("reseek_tpu_torch/csrc/sw_align.cu",
-                     "reseek_tpu/ops/sw_pallas.py:252", "q100"),
+    "sw_align": ("reseek_tpu_torch/csrc/sw_align.cu",
+                 "reseek_tpu/ops/sw_pallas.py:252", "q100"),
     "sw_score": ("reseek_tpu_torch/csrc/sw_traceback.cu",
                  "reseek_tpu/ops/sw_pallas.py:166", "self_rev"),
     "walk_traceback": ("reseek_tpu_torch/csrc/postalign.cu",
@@ -112,7 +115,7 @@ KERNELS = {
              "reseek_tpu/ops/postalign_jax.py:79", "q100"),
 }
 # the kernels that every pair-list search (query-vs-DB, -fast) launches
-SEARCH_KERNELS = ("mu_sweep", "sw_traceback", "walk_traceback", "lddt")
+SEARCH_KERNELS = ("mu_sweep", "sw_align", "walk_traceback", "lddt")
 # the native host code, built with g++ at first use (module of the port,
 # its loader _lib)
 NATIVE = ("encoder.native", "align.mkf_native", "ops.lddt", "ops.sw_native",
@@ -126,10 +129,10 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 # float32 operations of one DP cell: the recurrence's adds and maxima or
 # compares (stage 3 adds the 7 adds of the 8-feature score); LDDT's per
-# ordered column pair: two squared distances, two roots, the difference
+# unordered column pair: two squared distances, two roots, the difference
 # and its four threshold compares
 CELL_OPS = {"mu_sweep": 10, "sw_score_sweep": 10, "sw_score": 10,
-            "sw_traceback": 17}
+            "sw_align": 17}
 LDDT_PAIR_OPS = 24
 
 
@@ -267,7 +270,8 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
                                                 walk_traceback_batch,
                                                 walk_traceback_batch_ref)
     from reseek_tpu_torch.ops.sw_align import sw_align, sw_align_ref
-    from reseek_tpu_torch.ops.sw_sweep import (mu_sw_scores, mu_sw_scores_ref,
+    from reseek_tpu_torch.ops.sw_sweep import (mu_lane_bits, mu_sw_scores,
+                                               mu_sw_scores_ref,
                                                sw_score_sweep,
                                                sw_score_sweep_ref)
     from reseek_tpu_torch.ops.sw_wavefront import sw_score, sw_score_ref
@@ -291,23 +295,52 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
             for key, fn in extra:
                 r[key] = time_ms(fn, reps)
 
-    # K1: first block of every stage-1 shape group
+    # K1: first block of every stage-1 shape group (the self-search), then
+    # the first batch of every stage-1 shape of query-vs-DB and -fast
+    # (stage1_scores on explicit pairs: all ordered q100 pairs)
     o, e = -float(p.para_mu_gap_open), -float(p.para_mu_gap_ext)
-    for (lea, leb, ca, cb), starts in pipe.stage1_block_plan().items():
-        ba, bb, _, _ = starts[0]
-        a, b, _, _ = pipe.stage1_letters(lea, leb, ca, cb, ba, bb)
-        got = mu_sw_scores(a, b, pipe.mumx, o, e)
-        want = mu_sw_scores_ref(a, b, pipe.mumx, o, e)
+    mt = pipe.mu_table
+    n = len(pipe.ecs)
+    inputs = [pipe.stage1_letters(*key, *starts[0][:2])[:2]
+              for key, starts in pipe.stage1_block_plan().items()]
+    seen = set()
+    for _rr, _v, a, b in pipe.stage1_pair_letters(np.stack(np.meshgrid(
+            np.arange(n), np.arange(n), indexing="ij"), -1).reshape(-1, 2)):
+        if (a.shape[1], b.shape[1]) not in seen:
+            seen.add((a.shape[1], b.shape[1]))
+            inputs.append((a, b))
+    for a, b in inputs:
+        bsz, lea, leb = a.shape[0], a.shape[1], b.shape[1]
+        got = mu_sw_scores(a, b, mt, o, e)
+        want = mu_sw_scores_ref(a, b, mt.mumx, o, e)
         if not torch.equal(got, want):
-            fail(f"mu_sweep != plain at {(lea, leb, ca, cb)}")
-        print(f"[2] mu_sweep  B={a.shape[0]} LA={lea} LB={leb}: equal")
-        cells = a.shape[0] * lea * leb
+            fail(f"mu_sweep != plain at {(bsz, lea, leb)}")
+        print(f"[2] mu_sweep B={bsz} LA={lea} LB={leb}: equal (int"
+              f"{mu_lane_bits(lea, leb, mt.smax, mt.smin, int(o), int(e))})")
+        cells = bsz * lea * leb
         record("mu_sweep", (got - want).abs().max(), cells,
-               (a.shape[0], lea, leb),
-               lambda: mu_sw_scores(a, b, pipe.mumx, o, e),
-               lambda: mu_sw_scores_ref(a, b, pipe.mumx, o, e), 5,
-               a.numel() + b.numel() + 4 * pipe.mumx.numel()
-               + 4 * a.shape[0], cells * CELL_OPS["mu_sweep"])
+               (bsz, lea, leb), lambda: mu_sw_scores(a, b, mt, o, e),
+               lambda: mu_sw_scores_ref(a, b, mt.mumx, o, e), 5,
+               a.numel() + b.numel() + 2 * mt.tab16.numel() + 4 * bsz,
+               cells * CELL_OPS["mu_sweep"])
+    # the largest scores: self-pairs of the best-scoring diagonal letter,
+    # an odd batch, in both lane types (int16 pairs at 1,024 a side, int32
+    # at 8,192, where the score 4 x 8,192 leaves int16)
+    diag = mt.mumx.diagonal()[:36]
+    best = int(diag.argmax())
+    for le, bsz, bits in ((1024, 5, 16), (8192, 3, 32)):
+        if mu_lane_bits(le, le, mt.smax, mt.smin, int(o), int(e)) != bits:
+            fail(f"mu_sweep at {le} x {le} would not run int{bits}")
+        a = torch.full((bsz, le), best, dtype=torch.uint8, device=DEVICE)
+        a[1, le // 2:] = 36        # one shorter pair
+        got = mu_sw_scores(a, a, mt, o, e)
+        want = mu_sw_scores_ref(a, a, mt.mumx, o, e)
+        top = float(diag[best]) * le
+        if not torch.equal(got, want) or float(got.max()) != top:
+            fail(f"mu_sweep != plain on self-pairs at {le} ({got.tolist()}"
+                 f", plain {want.tolist()}, top {top})")
+        print(f"[2] mu_sweep self-pairs {bsz} x {le} x {le} (int{bits}): "
+              f"equal, top score {top:.0f}")
 
     # K2-K4: first chunk of every stage-3 shape; the stage-3 kernel reads
     # the profiles, and is timed beside the gather-sum it absorbs
@@ -325,11 +358,11 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
         want = sw_align_ref(*args)
         if not all(torch.equal(x, y) for x, y in zip(got, want)):
             fail(f"sw_align != plain at {(nb, lea, leb)}")
-        record("sw_traceback", (best - want[0]).abs().max(), cells,
+        record("sw_align", (best - want[0]).abs().max(), cells,
                (nb, lea, leb), lambda: sw_align(*args),
                lambda: sw_align_ref(*args), 3,
                nb * nf * (lea + leb) + 4 * pipe.table.blocks.numel()
-               + cells // 2 + 12 * nb, cells * CELL_OPS["sw_traceback"],
+               + cells // 2 + 12 * nb, cells * CELL_OPS["sw_align"],
                [("smx_ms", lambda: pipe.stage3_smx(lea, leb, ia, ib))])
 
         walk = walk_traceback_batch(tb, best, bi, bj, lea)
@@ -351,11 +384,16 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
         if not torch.equal(risky, rrisky) or float(err) > LDDT_TOL:
             fail(f"lddt != plain at {(nb, lea, leb)}: err {float(err)}")
         nm = n_m.long()
+        # the bound counts each unordered column pair once, as the
+        # function needs (the reference's upper triangle)
         record("lddt", err, int(n_m.sum()) * min(lea, leb),
                (nb, min(lea, leb)), lambda: lddt_batch(cq, ct, valid, n_m),
                lambda: lddt_batch_ref(cq, ct, valid, n_m), 5,
                8 * cq.numel() + valid.numel() + 4 * nb + 5 * nb,
-               int((nm * (nm - 1)).sum()) * LDDT_PAIR_OPS)
+               int((nm * (nm - 1) // 2).sum()) * LDDT_PAIR_OPS,
+               [(f"cluster{c}_ms", functools.partial(
+                   lddt_batch, cq, ct, valid, n_m, cluster=c))
+                for c in (1, 2, 4, 8)])
         print(f"[2] stage-3 kernels B={nb} LA={lea} LB={leb}: equal "
               f"(lddt err {float(err):.3g}, risky {int(risky.sum())})")
 
@@ -387,12 +425,18 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
     for name, r in res.items():
         if r["ms"] is None:
             fail(f"{name}: no main-path shape to compare at")
-        smx = (f", profile_smx alone {r['smx_ms']:.3f} ms" if "smx_ms" in r
-               else "")
+        smx = "".join(f", {k} {v:.3f}" for k, v in extra_times(r).items())
         print(f"[2] {name} at {r['shape']}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}){smx}, max_abs_err {r['max_abs_err']:.3g}")
     return res
+
+
+def extra_times(r: dict) -> dict:
+    """The extra timings of a kernel's phase-2 result: the stage-3
+    kernel's gather-sum yardstick, LDDT's times per cluster size."""
+    return {k: v for k, v in r.items() if k.endswith("_ms")
+            and k not in ("ms", "plain_ms", "bound_ms")}
 
 
 def phase_tie_prone(pipe) -> None:
@@ -415,8 +459,8 @@ def phase_tie_prone(pipe) -> None:
     from reseek_tpu_torch.ops.sw_wavefront import (MAX_LA, sw_score,
                                                    sw_score_ref)
     rng = np.random.default_rng(0)
-    mumx, table = pipe.mumx, pipe.table
-    dev = mumx.device
+    mt, table = pipe.mu_table, pipe.table
+    dev = mt.mumx.device
     go, ge = float(pipe.params.gap_open), float(pipe.params.gap_ext)
 
     def ragged(n, la, lb):
@@ -432,8 +476,8 @@ def phase_tie_prone(pipe) -> None:
         a[ragged(37, la, 1)[:, :, 0]] = 36
         b[ragged(37, 1, lb)[:, 0, :]] = 36
         a, b = torch.tensor(a, device=dev), torch.tensor(b, device=dev)
-        if not torch.equal(mu_sw_scores(a, b, mumx, -2.0, -1.0),
-                           mu_sw_scores_ref(a, b, mumx, -2.0, -1.0)):
+        if not torch.equal(mu_sw_scores(a, b, mt, -2.0, -1.0),
+                           mu_sw_scores_ref(a, b, mt.mumx, -2.0, -1.0)):
             fail(f"mu_sweep != plain on random letters {(la, lb)}")
     # stage 3 on random profiles [n, F, L]: ragged chain ends (PAD_BYTE
     # past them), row 0 all padding (pair 1 has no positive cell); few =
@@ -493,18 +537,22 @@ def phase_tie_prone(pipe) -> None:
                     and torch.equal(sweep, sw_score_sweep_ref(s, o, e))):
                 fail(f"sw_score/sw_score_sweep != plain on tie-prone "
                      f"{(la, lb, o, e)}")
-    for m in (7, 700, 2048):
-        walk = np.cumsum(rng.normal(0, 2.2, (20, m, 3)), axis=1)
+    # 20 pairs at three widths, then chunks of 1-3 pairs at 1,024 and
+    # 2,048 columns (several blocks a pair)
+    for m, n in ((7, 20), (700, 20), (2048, 20), (1024, 1), (1024, 3),
+                 (2048, 1), (2048, 2), (2048, 3)):
+        walk = np.cumsum(rng.normal(0, 2.2, (n, m, 3)), axis=1)
         cq = np.round(walk, 1).astype(np.float32)
         ct = np.round(walk + rng.normal(0, 0.7, walk.shape), 1).astype(
             np.float32)
-        ncols = rng.integers(0, m + 1, 20).astype(np.int32)
+        ncols = rng.integers(m // 2 if n < 20 else 0, m + 1, n).astype(
+            np.int32)
         valid = np.arange(m)[None, :] < ncols[:, None]
         args = [torch.tensor(x, device=dev) for x in (cq, ct, valid, ncols)]
         (got, risky), (want, wrisky) = lddt_batch(*args), lddt_batch_ref(*args)
         if not torch.equal(risky, wrisky) or float(
                 (got - want).abs().max()) > LDDT_TOL:
-            fail(f"lddt != plain on random coordinates (M={m})")
+            fail(f"lddt != plain on random coordinates {(n, m)}")
     print("[2] random and tie-prone inputs: every kernel equals its plain "
           "version")
 
@@ -593,6 +641,29 @@ def phase_replica(chains) -> None:
           f"(hits {drv.hit_count}), stages {json.dumps(drv.device_stats)}, "
           f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
           f"launches {launched.counts}")
+
+
+def phase_stage1(chains, reps: int = 7) -> None:
+    """Stage 1 of the 1,024-chain replica alone (the self-search's
+    stage1_survivors, warm): the host walls of ``reps`` runs and their
+    median, then one run under torch.profiler (device busy, the largest
+    kernels)."""
+    from reseek_tpu_torch.constants import DSSParams
+    from reseek_tpu_torch.search.engine import DeviceSelfSearch
+    from reseek_tpu_torch.search.host import _encode_all
+    params = DSSParams.create(MODE)
+    pipe = DeviceSelfSearch(_encode_all(chains, params, with_self_rev=False),
+                            params, device=DEVICE)
+    n = len(pipe.stage1_survivors())
+    walls = []
+    for _ in range(reps):
+        pipe.stage1_survivors()
+        walls.append(pipe.seconds["stage1"])
+    wall, busy, top = device_busy(pipe.stage1_survivors)
+    print(f"[s1] replica stage 1: {n} survivors, median "
+          f"{statistics.median(walls):.4f} s of {[round(w, 4) for w in walls]}"
+          f"; profiled {wall:.4f} s, device busy {busy:.4f} s; largest "
+          + ", ".join(f"{k[:40]} {s:.4f} s" for k, s in top[:4]))
 
 
 def phase_self_rev(sets):
@@ -949,6 +1020,11 @@ def main() -> int:
 
     phase_build()
     chains = read_chains(Q100)
+    if sys.argv[1:] == ["--stage1"]:
+        # phases 0-1, then the replica's stage 1 alone (to compare two
+        # versions of the Mu filter in one call)
+        phase_stage1(replica(chains, REPLICA_CHAINS))
+        return 0
     big = replica(chains, FAST_DB_CHAINS)
     db = big[:REPLICA_CHAINS]
     params = DSSParams.create(MODE)
@@ -958,6 +1034,10 @@ def main() -> int:
     print(f"[2] q100 stage-1 survivors: {len(survivors)}")
     res = phase_kernels(pipe, survivors)
     phase_tie_prone(pipe)
+    if sys.argv[1:] == ["--kernels"]:
+        # phases 0-2 only: the kernels against their plain versions
+        print(json.dumps(res))
+        return 0
     del pipe
     launches = {}
     launches["q100"], want_self, self_s = phase_q100(chains)
@@ -975,14 +1055,15 @@ def main() -> int:
 
     print(card)
     # library_ms: no single PyTorch call computes SW, the walk or LDDT;
-    # the stage-3 kernel's yardstick is the gather-sum it absorbs (smx_ms)
+    # the stage-3 kernel's yardstick is the gather-sum it absorbs (smx_ms),
+    # LDDT's times per cluster size (cluster<C>_ms) are beside its own
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[run][k], "max_abs_err": res[k]["max_abs_err"],
          "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"],
          "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"],
          "library_ms": None, "shape": res[k]["shape"],
-         **({"smx_ms": res[k]["smx_ms"]} if "smx_ms" in res[k] else {})}
+         **extra_times(res[k])}
         for k, (src, rep, run) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

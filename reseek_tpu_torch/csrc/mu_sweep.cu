@@ -1,13 +1,11 @@
-// Smith-Waterman best score by row sweep: the Mu filter (stage 1) on
-// letters, and the score-only prepass (stage 2) on float substitution rows.
+// Smith-Waterman best score by row sweep over float32 substitution rows:
+// the score-only prepass of stage 2.
 //
-// Replaces the Pallas kernels reseek_tpu/ops/sw_sweep.py
-// sw_score_sweep_pallas (_sweep_kernel) and mu_sw_score_fused_pallas
-// (_fused_sweep_kernel).  mu_sweep takes Mu letters and builds each
-// substitution row from the 37x37 table, as the fused kernel does (the
-// stage-1 use of both); sw_score_sweep reads the rows of a float32
-// substitution tensor [B, LA, LB], as sw_score_sweep_pallas does in the
-// JAX engine's stage-2 prepass (_stage2_body).
+// Replaces the Pallas kernel reseek_tpu/ops/sw_sweep.py:206
+// (sw_score_sweep_pallas, _sweep_kernel) as the JAX engine's stage-2
+// prepass (_stage2_body) uses it: it reads the rows of a float32
+// substitution tensor [B, LA, LB].  (The Mu filter, the stage-1 use of the
+// row sweep on letters, is csrc/mu_wavefront.cu.)
 //
 // Recurrences (src/sw.cpp as written, S folded in after the max), in the
 // op order of sw_sweep._row_step:
@@ -19,13 +17,12 @@
 // Every add, subtract and multiply is an explicit round-to-nearest
 // intrinsic, so nvcc cannot contract "h + open - float(k)*ext" into an
 // FMA: each value is rounded where the plain PyTorch version rounds it,
-// and a max-scan is exact in any order, so the float entry equals the
-// plain version bit for bit.  On Mu letters every value is a small
-// integer and exact anyway.  The row sweep's rounding differs from the
+// and a max-scan is exact in any order, so the kernel equals the plain
+// version bit for bit.  The row sweep's rounding differs from the
 // wavefront's cell order (a closed form of F), by up to ~1e-3 on profile
-// scores; the engine gates its results with a guard band.  Padding letter
-// 36 scores NEG/2 and float padding is ~NEG (finite), so padded cells
-// stay hugely negative and never reach the 0-floored best.
+// scores; the engine gates its results with a guard band.  Float padding
+// is ~NEG (finite), so padded cells stay hugely negative and never reach
+// the 0-floored best.
 //
 // What bounds it on the H100: one row is a dependent step (the F scan
 // reads the whole previous row), so a pair is LA sequential steps of a
@@ -33,13 +30,10 @@
 // row, not memory.  One block per pair, threads over B-side lanes (V
 // contiguous lanes each: a serial scan inside the thread, a warp-shuffle
 // scan across lanes, one shared-memory pass across warps); the two
-// previous H rows live in shared memory.  Letters: the table and the
-// B-side letters sit in shared memory and the substitution row is a table
-// lookup, so no [B, LA, LB] tensor is ever written, and trailing padding
-// rows of A are skipped.  Float rows: each thread reads its V lanes of row
-// i+1 from global memory (float4 loads where aligned, so a warp reads one
-// contiguous span along LB) while it computes row i.  No tensor cores: the
-// work is compares and adds.
+// previous H rows live in shared memory.  Each thread reads its V lanes
+// of row i+1 from global memory (float4 loads where aligned, so a warp
+// reads one contiguous span along LB) while it computes row i.  No tensor
+// cores: the work is compares and adds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,8 +41,6 @@
 namespace {
 
 constexpr float NEG = -9e9f;
-constexpr int MU_N = 37;    // 36 letters + padding
-constexpr int MU_PAD = 36;
 constexpr int MAX_THREADS = 256;
 
 // DP state of one thread's V contiguous B-side lanes base..base+V-1.
@@ -150,63 +142,6 @@ __device__ __forceinline__ void block_best(float best, float* wsum,
   }
 }
 
-template <int V>
-__global__ void __launch_bounds__(MAX_THREADS)
-mu_sweep_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
-                const float* __restrict__ mumx, float* __restrict__ out,
-                int LA, int LB, float open_, float ext) {
-  extern __shared__ float smem[];
-  const int T = blockDim.x;
-  const int lanes = T * V;
-  float* tab = smem;                      // [37*37]
-  float* h1s = tab + MU_N * MU_N;         // H(i-1, :)  [lanes]
-  float* h2s = h1s + lanes;               // H(i-2, :)  [lanes]
-  float* wsum = h2s + lanes;              // per-warp scan totals [32]
-  int* la_eff = reinterpret_cast<int*>(wsum + 32);
-  uint8_t* bl = reinterpret_cast<uint8_t*>(la_eff + 1);   // [lanes]
-  uint8_t* al = bl + lanes;                               // [LA]
-
-  const int pair = blockIdx.x;
-  const int tid = threadIdx.x;
-  const uint8_t* arow = a + (size_t)pair * LA;
-  const uint8_t* brow = b + (size_t)pair * LB;
-
-  if (tid == 0) *la_eff = 0;
-  for (int k = tid; k < MU_N * MU_N; k += T) tab[k] = mumx[k];
-  for (int j = tid; j < lanes; j += T) {
-    bl[j] = j < LB ? brow[j] : (uint8_t)MU_PAD;
-    h1s[j] = NEG;
-    h2s[j] = NEG;
-  }
-  __syncthreads();
-  // rows after the last real A letter only add NEG/2 everywhere
-  int last = 0;
-  for (int i = tid; i < LA; i += T) {
-    const uint8_t c = arow[i];
-    al[i] = c;
-    if (c != MU_PAD) last = i + 1;
-  }
-  atomicMax(la_eff, last);
-  __syncthreads();
-  const int nrows = *la_eff;
-
-  const int base = tid * V;
-  Lanes<V> st;
-  init_lanes(st);
-  int bcode[V];
-#pragma unroll
-  for (int k = 0; k < V; ++k) bcode[k] = bl[base + k];
-
-  for (int i = 0; i < nrows; ++i) {
-    const float* trow = tab + al[i] * MU_N;
-    float sv[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) sv[k] = trow[bcode[k]];
-    sweep_row(st, sv, h1s, h2s, wsum, base, open_, ext);
-  }
-  block_best(st.best, wsum, out + pair);
-}
-
 // V lanes of one substitution row from global memory; NEG past LB.
 template <int V>
 __device__ __forceinline__ void load_row(const float* __restrict__ row,
@@ -286,21 +221,6 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 }
 
 template <int V>
-cudaError_t launch_mu(const uint8_t* a, const uint8_t* b, const float* mumx,
-                      float* out, int B, int LA, int LB, float open_,
-                      float ext, cudaStream_t stream) {
-  const int threads = threads_for<V>(LB);
-  const int lanes = threads * V;
-  const size_t smem = sizeof(float) * (MU_N * MU_N + 2 * lanes + 32) +
-                      sizeof(int) + lanes + LA;
-  cudaError_t err = allow_smem(mu_sweep_kernel<V>, smem);
-  if (err != cudaSuccess) return err;
-  mu_sweep_kernel<V><<<B, threads, smem, stream>>>(a, b, mumx, out, LA, LB,
-                                                   open_, ext);
-  return cudaGetLastError();
-}
-
-template <int V>
 cudaError_t launch_float(const float* s, float* out, int B, int LA, int LB,
                          float open_, float ext, cudaStream_t stream) {
   const int threads = threads_for<V>(LB);
@@ -324,21 +244,6 @@ cudaError_t launch_float(const float* s, float* out, int B, int LA, int LB,
   return (int)cudaErrorInvalidValue;
 
 extern "C" {
-
-// a [B, LA] and b [B, LB] uint8 Mu letters (36 = padding), mumx [37, 37]
-// float32; out [B] float32 best local scores (>= 0).  LB <= 8192.
-int mu_sweep(const void* a, const void* b, const void* mumx, void* out,
-             int B, int LA, int LB, float open_, float ext, void* stream) {
-  if (B <= 0) return 0;
-  const uint8_t* pa = static_cast<const uint8_t*>(a);
-  const uint8_t* pb = static_cast<const uint8_t*>(b);
-  const float* pm = static_cast<const float*>(mumx);
-  float* po = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RESEEK_MU(V) launch_mu<V>(pa, pb, pm, po, B, LA, LB, open_, ext, s)
-  RESEEK_BY_LB(RESEEK_MU)
-#undef RESEEK_MU
-}
 
 // s [B, LA, LB] float32 substitution scores (NEG-padded); out [B] float32
 // best local scores (>= 0).  LB <= 8192.

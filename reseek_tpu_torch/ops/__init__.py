@@ -13,5 +13,5 @@ def kernel_wrappers():
     from reseek_tpu_torch.ops.sw_sweep import mu_sw_scores, sw_score_sweep
     from reseek_tpu_torch.ops.sw_wavefront import sw_score
     return {"mu_sweep": mu_sw_scores, "sw_score_sweep": sw_score_sweep,
-            "sw_traceback": sw_align, "sw_score": sw_score,
+            "sw_align": sw_align, "sw_score": sw_score,
             "walk_traceback": walk_traceback_batch, "lddt": lddt_batch}

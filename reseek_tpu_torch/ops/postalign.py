@@ -5,6 +5,8 @@ CPU tensors each runs its plain version, defined beside it."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -18,6 +20,26 @@ PM, PD, PI, PEND = 1, 2, 3, 0
 R0_SQ = np.float32(225.0)
 THRESHOLDS = (0.5, 1.0, 2.0, 4.0)
 MAX_LDDT_COLS = 7680     # shared-memory bound of the kernel (29 B/column)
+LDDT_WARPS = 8           # warps of a block of the kernel
+MAX_CLUSTER = 8          # blocks of a thread-block cluster (portable limit)
+
+
+def lddt_cluster(b: int, m: int, sms: int) -> int:
+    """Blocks per pair (a thread-block cluster): doubled from 1 while the
+    launch has fewer than 4 blocks an SM, up to MAX_CLUSTER, as long as
+    every warp of the cluster still gets two tiles of the triangle."""
+    nt = -(-m // 32)
+    tiles = nt * (nt + 1) // 2
+    c = 1
+    while (c < MAX_CLUSTER and b * c < 4 * sms
+           and 2 * 2 * c * LDDT_WARPS <= tiles):
+        c *= 2
+    return c
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _cuda_inputs(name: str, *ts: torch.Tensor) -> None:
@@ -116,14 +138,16 @@ def walk_traceback_batch_ref(tb: torch.Tensor, best: torch.Tensor,
 
 @kernels.counted
 def lddt_batch(cq: torch.Tensor, ct: torch.Tensor, valid: torch.Tensor,
-               ncols: torch.Tensor, with_risky: bool = True):
+               ncols: torch.Tensor, with_risky: bool = True,
+               cluster: int = 0):
     """Batched LDDT_mu_fast (src/lddt.cpp:63-124) of aligned-column
     coordinates cq, ct [B, M, 3] float32 with column mask valid [B, M] bool
     and true column counts ncols [B] int32.  Returns lddt [B] float32 and,
     with_risky, a [B] bool flag for pairs where a threshold comparison
     (|d1-d2| within 3e-5 of 0.5/1/2/4) or the R0^2 gate (d^2 within 1e-3
     of 225) sits near its boundary: callers recompute those exactly on the
-    host."""
+    host.  ``cluster`` sets the kernel's blocks per pair (1-8; 0 takes
+    ``lddt_cluster``'s)."""
     if cq.device.type == "cpu":
         return lddt_batch_ref(cq, ct, valid, ncols, with_risky)
     if cq.dtype != torch.float32 or ct.dtype != torch.float32:
@@ -136,6 +160,8 @@ def lddt_batch(cq: torch.Tensor, ct: torch.Tensor, valid: torch.Tensor,
         raise ValueError("lddt_batch: bad shapes")
     if m > MAX_LDDT_COLS:
         raise ValueError(f"lddt_batch: M {m} > {MAX_LDDT_COLS}")
+    if not 0 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"lddt_batch: cluster {cluster} not in 0..8")
     _cuda_inputs("lddt_batch", cq, ct, valid, ncols)
     dev = cq.device
     out = torch.empty(b, dtype=torch.float32, device=dev)
@@ -144,7 +170,8 @@ def lddt_batch(cq: torch.Tensor, ct: torch.Tensor, valid: torch.Tensor,
         kernels.launch(
             lddt_batch, "lddt", cq, kernels.ptr(cq), kernels.ptr(ct),
             kernels.ptr(valid), kernels.ptr(ncols), kernels.ptr(out),
-            kernels.ptr(risky), b, m, int(with_risky))
+            kernels.ptr(risky), b, m, int(with_risky),
+            cluster or lddt_cluster(b, m, _sm_count(dev)))
     return (out, risky) if with_risky else out
 
 

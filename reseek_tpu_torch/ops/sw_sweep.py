@@ -1,15 +1,19 @@
-"""Row-sweep Smith-Waterman scores, counterpart of
+"""Smith-Waterman best scores without traceback, counterpart of
 reseek_tpu/ops/sw_sweep.py.
 
-Two entries, one CUDA source (csrc/mu_sweep.cu, which replaces the Pallas
-kernels sw_score_sweep_pallas and mu_sw_score_fused_pallas):
+Two entries, two CUDA sources:
 
-- ``mu_sw_scores``: the Mu filter on letter rows.  The 36-letter matrix
-  and the gap penalties are integers, so every DP value is an exact small
-  integer in float32 and any evaluation order gives the scores of
-  ops/sw_np.sw_score bit for bit.
-- ``sw_score_sweep``: the same sweep over a float32 substitution tensor
-  (the score-only stage-2 prepass).  It follows the op order of the JAX
+- ``mu_sw_scores``: the Mu filter on letter rows (csrc/mu_wavefront.cu,
+  which replaces the Pallas kernel mu_sw_score_fused_pallas).  The
+  36-letter table and the gap penalties are integers, so every DP value
+  is an exact small integer and any evaluation order gives the scores of
+  ops/sw_np.sw_score bit for bit; the kernel runs the DP in int16 pairs
+  or int32 on Hopper's DPX instructions, with the lane type that
+  ``mu_lane_bits`` proves cannot wrap.  Its table is a ``MuTable``, built
+  and checked once.
+- ``sw_score_sweep``: the row sweep over a float32 substitution tensor
+  (csrc/mu_sweep.cu, the score-only stage-2 prepass; replaces
+  sw_score_sweep_pallas).  It follows the op order of the JAX
   ``_row_step`` (F as kext + cummax(H + open - kext), kext = float(k) *
   ext), so the kernel equals its plain version bit for bit; the closed
   form of F rounds differently from the wavefront, by up to ~1e-3 on
@@ -21,6 +25,9 @@ Each launches its kernel on CUDA tensors and runs its plain version
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Tuple
+
 import numpy as np
 import torch
 
@@ -28,40 +35,139 @@ from reseek_tpu_torch import kernels
 
 NEG = np.float32(-9e9)
 MAX_LB = 8192
+MU_PAD = 36                # the padding letter
+PAD16 = -32768             # the int16 table's padding entries
+MAX_ENTRY = 32767          # |entry| bound of the 36x36 block
+MAX_GAP = 32767            # |open|, |ext| bound
+# each lane type: (smallest, largest value it holds, the padding score
+# the kernel gives letter 36 in it)
+LANES = {16: (-(1 << 15), (1 << 15) - 1, PAD16),
+         32: (-(1 << 31), (1 << 31) - 1, -(1 << 30))}
+# the float table's padding entries must sink every padded cell of the
+# plain version below 0 at any shape the wrapper takes
+MAX_FLOAT_PAD = -float(1 << 30)
+
+
+@dataclasses.dataclass(frozen=True)
+class MuTable:
+    """The padded 37x37 Mu table, checked once: ``mumx`` float32 (the
+    plain version's), ``tab16`` int16 (the kernel's: the 36x36 block, and
+    ``pad`` in letter 36's row and column), the block's largest and
+    smallest entries ``smax``, ``smin``.  All tensors on one device."""
+    mumx: torch.Tensor
+    tab16: torch.Tensor
+    smax: int
+    smin: int
+    pad: int = PAD16
+
+    @classmethod
+    def build(cls, mumx: torch.Tensor) -> "MuTable":
+        """Raises unless ``mumx`` is float32 [37, 37] with an integer 36x36
+        block in [-MAX_ENTRY, MAX_ENTRY] and padding entries (row and
+        column 36) at most MAX_FLOAT_PAD."""
+        if mumx.dtype != torch.float32 or tuple(mumx.shape) != (37, 37):
+            raise TypeError("MuTable: mumx must be float32 [37, 37]")
+        m = mumx.detach().cpu().double()
+        block = m[:MU_PAD, :MU_PAD]
+        if not bool(torch.isfinite(block).all()) or not torch.equal(
+                block, block.round()):
+            raise ValueError("MuTable: the 36x36 block must be integers")
+        if float(block.abs().max()) > MAX_ENTRY:
+            raise ValueError(f"MuTable: entries beyond +-{MAX_ENTRY}")
+        pads = torch.cat([m[MU_PAD, :], m[:, MU_PAD]])
+        if not float(pads.max()) <= MAX_FLOAT_PAD:
+            raise ValueError("MuTable: the padding row and column must be "
+                             f"<= {MAX_FLOAT_PAD}")
+        tab = torch.full((37, 37), PAD16, dtype=torch.int16)
+        tab[:MU_PAD, :MU_PAD] = block.to(torch.int16)
+        return cls(mumx.contiguous(), tab.to(mumx.device),
+                   int(block.max()), int(block.min()))
+
+    def to(self, device) -> "MuTable":
+        return dataclasses.replace(self, mumx=self.mumx.to(device),
+                                   tab16=self.tab16.to(device))
+
+
+def mu_lane_fits(la: int, lb: int, smax: int, smin: int, open_: int,
+                 ext: int, bits: int) -> bool:
+    """True when no value the kernel's clamped DP forms at shape [la, lb]
+    leaves the ``bits`` lane type (DPX adds wrap) and a padded cell stays
+    below 0 (pad + hi < 0, so its H' is 0).  Every H', E', F' lies in
+    [0, hi], hi = max(smax, 0) * min(la, lb): a local path's score gains
+    at most smax per diagonal step and at most min(la, lb) of them, gaps
+    only cost.  The sums below 0 are H' + open, E' + ext (>= the penalty)
+    and m + S with m in [0, hi] (>= smin, or >= the lane's padding score
+    on a padded cell)."""
+    tmin, tmax, pad = LANES[bits]
+    lo = min(pad, smin, open_, ext, 0)
+    hi = max(smax, 0) * min(la, lb)
+    return tmin <= lo and hi <= tmax and pad + hi < 0
+
+
+def mu_lane_bits(la: int, lb: int, smax: int, smin: int, open_: int,
+                 ext: int) -> int:
+    """The kernel's lane type for a shape: 16 (two pairs a 32-bit word)
+    where every value fits int16, else 32.  Raises where neither fits."""
+    for bits in (16, 32):
+        if mu_lane_fits(la, lb, smax, smin, open_, ext, bits):
+            return bits
+    raise ValueError(f"mu_sw_scores: no lane type holds shape {(la, lb)}")
+
+
+def mu_rows_per_lane(la: int) -> int:
+    """R, the rows of a lane's strip: 4 up to LA 128 (one tile of 32 R
+    rows), else 8 (tiles of 256 rows, passes beyond)."""
+    return 4 if la <= 128 else 8
+
+
+def _gap_penalties(open_: float, ext: float) -> Tuple[int, int]:
+    """The penalties as integers in [-MAX_GAP, 0]; raises otherwise (the
+    integer kernel has no other form of them)."""
+    out = []
+    for name, x in (("open", open_), ("ext", ext)):
+        if float(x) != round(float(x)) or not -MAX_GAP <= float(x) <= 0:
+            raise ValueError(f"mu_sw_scores: gap {name} {x} must be an "
+                             f"integer in [-{MAX_GAP}, 0]")
+        out.append(int(round(float(x))))
+    return out[0], out[1]
 
 
 @kernels.counted
-def mu_sw_scores(a: torch.Tensor, b: torch.Tensor, mumx: torch.Tensor,
+def mu_sw_scores(a: torch.Tensor, b: torch.Tensor, table: MuTable,
                  open_: float, ext: float) -> torch.Tensor:
     """Best local SW score [B] float32 (>= 0) for each pair of Mu letter
     rows a [B, LA], b [B, LB] (uint8, letter 36 = padding, trailing only)
-    under the padded 37x37 table ``mumx``."""
+    under ``table``; open_, ext integer penalties <= 0."""
+    io, ie = _gap_penalties(open_, ext)
     if a.device.type == "cpu":
-        return mu_sw_scores_ref(a, b, mumx, open_, ext)
+        return mu_sw_scores_ref(a, b, table.mumx, open_, ext)
     if a.dtype != torch.uint8 or b.dtype != torch.uint8:
         raise TypeError("mu_sw_scores: letters must be uint8")
-    if mumx.dtype != torch.float32 or tuple(mumx.shape) != (37, 37):
-        raise TypeError("mu_sw_scores: mumx must be float32 [37, 37]")
     if a.dim() != 2 or b.dim() != 2 or a.shape[0] != b.shape[0]:
         raise ValueError(f"mu_sw_scores: bad shapes {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
-    if not (b.device == a.device == mumx.device):
+    if not (b.device == a.device == table.tab16.device):
         raise ValueError("mu_sw_scores: tensors on different devices")
-    if not (a.is_contiguous() and b.is_contiguous()
-            and mumx.is_contiguous()):
+    if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("mu_sw_scores: tensors must be contiguous")
     bsz, la = a.shape
     lb = b.shape[1]
     if lb > MAX_LB:
         raise ValueError(f"mu_sw_scores: LB {lb} > {MAX_LB}")
+    if bsz == 0 or la == 0 or lb == 0:
+        return torch.zeros(bsz, dtype=torch.float32, device=a.device)
     out = torch.empty(bsz, dtype=torch.float32, device=a.device)
-    if bsz == 0:
-        return out
-    kernels.launch(mu_sw_scores, "mu_sweep", a, kernels.ptr(a),
-                   kernels.ptr(b), kernels.ptr(mumx), kernels.ptr(out), bsz,
-                   la, lb, float(open_), float(ext))
+    bits = mu_lane_bits(la, lb, table.smax, table.smin, io, ie)
+    r = mu_rows_per_lane(la)
+    groups = -(-bsz // (2 if bits == 16 else 1))
+    # the boundary rows between passes of 32 R rows, two alternating
+    bnd = (torch.empty((groups, 2, 3, lb), dtype=torch.int32,
+                       device=a.device) if la > 32 * r else out)
+    kernels.launch(mu_sw_scores, "mu_wavefront", a, kernels.ptr(a),
+                   kernels.ptr(b), kernels.ptr(table.tab16),
+                   kernels.ptr(out), kernels.ptr(bnd), bsz, la, lb, io, ie,
+                   bits, r)
     return out
-
 
 
 @kernels.counted
@@ -84,7 +190,6 @@ def sw_score_sweep(s: torch.Tensor, open_: float,
     kernels.launch(sw_score_sweep, "sw_score_sweep", s, kernels.ptr(s),
                    kernels.ptr(out), bsz, la, lb, float(open_), float(ext))
     return out
-
 
 
 def _sweep_ref(rows, nrows: int, bsz: int, lb: int, open_: float,

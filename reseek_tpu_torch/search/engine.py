@@ -64,7 +64,7 @@ from reseek_tpu_torch.ops.postalign import (PD, PI, PM, lddt_batch,
 from reseek_tpu_torch.ops.smx import (PAD_BYTE, flat_layout, mu_table,
                                       profile_codes, profile_smx)
 from reseek_tpu_torch.ops.sw_align import FeatureTable, sw_align
-from reseek_tpu_torch.ops.sw_sweep import mu_sw_scores, sw_score_sweep
+from reseek_tpu_torch.ops.sw_sweep import MuTable, mu_sw_scores, sw_score_sweep
 from reseek_tpu_torch.ops.sw_wavefront import sw_score
 from reseek_tpu_torch.parallel.mesh import MeshLike, as_mesh
 
@@ -320,7 +320,8 @@ class DeviceSelfSearch:
         self.coords = put(coords, torch.float32)
         self.w = put(w, torch.float32)
         self.offsets = put(offsets, torch.int64)
-        self.mumx = put(mumx, torch.float32)
+        # the padded Mu table, checked once (stage 1's kernel table)
+        self.mu_table = MuTable.build(put(mumx, torch.float32))
         self.pad_code = int(self.w.shape[0]) - 1
         # W's per-feature blocks, the stage-3 kernel's tables
         self.table = FeatureTable.build(self.w, self.offsets)
@@ -338,13 +339,19 @@ class DeviceSelfSearch:
                 views[d] = v = copy.copy(self)
                 v.device = d
                 for name in ("prof", "mu", "mu_rev", "coords", "w",
-                             "offsets", "mumx"):
+                             "offsets"):
                     setattr(v, name, getattr(self, name).to(d))
                 v.table = self.table.to(d)
+                v.mu_table = self.mu_table.to(d)
         self._views = ([views[d] for d in self.mesh.devices]
                        if self.mesh is not None else [self])
         for v in views.values():
             v._views = self._views
+
+    @property
+    def mumx(self) -> torch.Tensor:
+        """The padded float32 Mu table (the plain version's)."""
+        return self.mu_table.mumx
 
     def build_rev_profiles(self) -> None:
         """Encode the reversed chains below mkfl on a host thread pool and
@@ -465,7 +472,7 @@ class DeviceSelfSearch:
         p = self.params
         a, b, ia, ib = self.stage1_letters(lea, leb, ca, cb, ba, bb)
         # fwd and rev in one kernel launch ([2B] batch)
-        both = mu_sw_scores(a, b, self.mumx, -float(p.para_mu_gap_open),
+        both = mu_sw_scores(a, b, self.mu_table, -float(p.para_mu_gap_open),
                             -float(p.para_mu_gap_ext))
         fwd, rev = both[: ca * cb], both[ca * cb:]
         # parasail 8-bit saturation (align/pipeline.py MU_SAT_* notes)
@@ -526,6 +533,30 @@ class DeviceSelfSearch:
         return torch.as_tensor(self.sorted_of[orig], device=self.device)
 
     # -- stage 1 on explicit pairs: Mu filter values ---------------------
+    def stage1_pair_letters(self, pairs_orig: np.ndarray):
+        """Kernel inputs of stage 1 on explicit (i, j) original-index
+        pairs, yielded one batch at a time: (rows of pairs_orig, the view
+        that runs them, a [2n, LA], b [2n, LB] uint8 letters, fwd pairs
+        then rev pairs), pairs grouped
+        by their rectangular edges as in stage 3, at most STAGE1_CELLS / 2
+        cells a batch, batch k on mesh position k mod size."""
+        ra, rb = _rect_edges(self._edge_of(self.lens[pairs_orig[:, 0]]),
+                             self._edge_of(self.lens[pairs_orig[:, 1]]))
+        keys = ra.astype(np.int64) * (1 << 20) + rb
+        k = 0
+        for key in sorted({int(x) for x in keys}):
+            lea, leb = key >> 20, key & ((1 << 20) - 1)
+            rows = np.flatnonzero(keys == key)
+            bs = _batch_shape(len(rows), lea, STAGE1_CELLS // 2, le_b=leb)
+            for kk in range(0, len(rows), bs):
+                rr = rows[kk: kk + bs]
+                v = self._view(k)
+                k += 1
+                ia = v._sorted_idx(pairs_orig[rr, 0])
+                b = v.mu[v._sorted_idx(pairs_orig[rr, 1]), :leb]
+                yield (rr, v, torch.cat([v.mu[ia, :lea], v.mu_rev[ia, :lea]]),
+                       torch.cat([b, b]))
+
     def stage1_scores(self, pairs_orig: np.ndarray) -> np.ndarray:
         """Mu filter value per (i, j) original-index pair: 0 if fwd <
         OmegaFwd else fwd - rev, with parasail saturation semantics
@@ -540,23 +571,9 @@ class DeviceSelfSearch:
         if len(pairs_orig) == 0:
             return out
         o, e = -float(p.para_mu_gap_open), -float(p.para_mu_gap_ext)
-        ra, rb = _rect_edges(self._edge_of(self.lens[pairs_orig[:, 0]]),
-                             self._edge_of(self.lens[pairs_orig[:, 1]]))
-        keys = ra.astype(np.int64) * (1 << 20) + rb
         jobs = []
-        for key in sorted({int(x) for x in keys}):
-            lea, leb = key >> 20, key & ((1 << 20) - 1)
-            rows = np.flatnonzero(keys == key)
-            bs = _batch_shape(len(rows), lea, STAGE1_CELLS // 2, le_b=leb)
-            for kk in range(0, len(rows), bs):
-                rr = rows[kk: kk + bs]
-                v = self._view(len(jobs))
-                ia = v._sorted_idx(pairs_orig[rr, 0])
-                b = v.mu[v._sorted_idx(pairs_orig[rr, 1]), :leb]
-                both = mu_sw_scores(
-                    torch.cat([v.mu[ia, :lea], v.mu_rev[ia, :lea]]),
-                    torch.cat([b, b]), v.mumx, o, e)
-                jobs.append((rr, both))
+        for rr, v, a, b in self.stage1_pair_letters(pairs_orig):
+            jobs.append((rr, mu_sw_scores(a, b, v.mu_table, o, e)))
         for (rr, _), both in zip(jobs, self._fetch([x for _, x in jobs])):
             n = len(rr)
             fwd = both[:n].copy()

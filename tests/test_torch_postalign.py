@@ -18,7 +18,8 @@ from reseek_tpu.ops import postalign_jax
 from reseek_tpu.ops.lddt import lddt_mu_fast
 from reseek_tpu.ops.sw_np import NEG
 from reseek_tpu.ops.sw_pallas import sw_traceback_pallas
-from reseek_tpu_torch.ops.postalign import (lddt_batch, lddt_batch_ref,
+from reseek_tpu_torch.ops.postalign import (MAX_CLUSTER, lddt_batch,
+                                            lddt_batch_ref, lddt_cluster,
                                             walk_traceback_batch,
                                             walk_traceback_batch_ref)
 from reseek_tpu_torch.ops.sw_align import pack_tb
@@ -113,3 +114,83 @@ def test_lddt_without_risky_and_wrappers_on_cpu(columns):
     out, _ = lddt_batch_ref(*args)
     assert torch.equal(plain, out)
     assert (lddt_batch.launches, walk_traceback_batch.launches) == before
+
+
+def _kernel_tiles(n):
+    """The LDDT kernel's work split (csrc/postalign.cu lddt_kernel), step
+    by step: tile k of the column-pair triangle decoded to (I, J), I <= J;
+    lane l (row c = 32 I + l) meets column 32 J + ((l + s) mod 32) at
+    steps s = 0..31, or on a diagonal tile s = 1..16 with s = 16 on lanes
+    0..15 only; pairs with a column >= n are skipped.  Yields (c, o)."""
+    nt = -(-n // 32)
+    for k in range(nt * (nt + 1) // 2):
+        j = int((np.sqrt(np.float32(8 * k + 1)) - 1) * 0.5)
+        while j * (j + 1) // 2 > k:
+            j -= 1
+        while (j + 1) * (j + 2) // 2 <= k:
+            j += 1
+        i = k - j * (j + 1) // 2
+        diag = i == j
+        for lane in range(32):
+            for s in (range(1, 17) if diag else range(32)):
+                if diag and s == 16 and lane >= 16:
+                    continue
+                c, o = 32 * i + lane, 32 * j + (lane + s) % 32
+                if c < n and o < n:
+                    yield c, o
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 33, 512, 1023])
+def test_lddt_split_covers_each_column_pair_once(n):
+    got = sorted((min(c, o), max(c, o)) for c, o in _kernel_tiles(n))
+    want = [(c, o) for c in range(n) for o in range(c + 1, n)]
+    assert got == want
+
+
+def test_lddt_cluster_rule():
+    """Blocks per pair: several for launches of few pairs, never more than
+    a cluster holds, and only while each warp keeps two tiles."""
+    assert lddt_cluster(213, 512, 132) == 4
+    assert lddt_cluster(1000, 512, 132) == 1
+    assert lddt_cluster(3, 1024, 132) == MAX_CLUSTER
+    assert lddt_cluster(1, 2048, 132) == MAX_CLUSTER
+    assert lddt_cluster(1, 64, 132) == 1
+    for b in (1, 2, 3, 50, 213, 600):
+        for m in (7, 128, 512, 1024, 2048, 7680):
+            c = lddt_cluster(b, m, 132)
+            nt = -(-m // 32)
+            assert c in (1, 2, 4, 8)
+            assert c == 1 or 2 * c * 8 <= nt * (nt + 1) // 2
+
+
+def test_lddt_at_the_boundaries_matches_jax():
+    """Coordinates built to sit on the R0^2 gate (d^2 = 225) and on each
+    threshold (|d1 - d2| = 0.5, 1, 2, 4), and just off them: the plain
+    version against the JAX function, `risky` equal and every pair not
+    flagged within LDDT_TOL."""
+    cases = []
+    for d2 in (0.5, 1.0, 2.0, 4.0):
+        for off in (0.0, 1e-5, 0.25):
+            cases.append((10.0, 10.0 + d2 + off))   # a threshold
+    cases += [(15.0, 15.0), (15.0, 14.9), (15.0 + 1e-4, 16.0),
+              (15.5, 15.5), (3.0, 3.2)]             # the gate
+    b, m = len(cases), 4
+    cq = np.zeros((b, m, 3), np.float32)
+    ct = np.zeros((b, m, 3), np.float32)
+    for k, (dq, dt) in enumerate(cases):
+        # columns 0 and 1 at the case's distances, 2 and 3 far away
+        cq[k, 1, 0], ct[k, 1, 0] = dq, dt
+        cq[k, 2:, 1] = ct[k, 2:, 1] = (100.0, 107.0)
+    valid = np.ones((b, m), bool)
+    valid[-1, 3] = False
+    ncols = valid.sum(1).astype(np.int32)
+    got, risky = lddt_batch_ref(*(torch.from_numpy(x)
+                                  for x in (cq, ct, valid, ncols)))
+    want, wrisky = postalign_jax.lddt_batch(
+        jnp.asarray(cq), jnp.asarray(ct), jnp.asarray(valid),
+        jnp.asarray(ncols), with_risky=True)
+    assert np.array_equal(risky.numpy(), np.asarray(wrisky))
+    assert risky.numpy()[[0, 3, 6, 9, 12, 13]].all()
+    ok = ~risky.numpy()
+    assert ok.any()
+    assert np.max(np.abs(got.numpy() - np.asarray(want))[ok]) <= LDDT_TOL
