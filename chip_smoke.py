@@ -6,6 +6,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 0-2 only
     python3 chip_smoke.py --stage1    # phases 0-1, the replica's stage 1
+    python3 chip_smoke.py --walk      # phases 0-1, the walk alone
 
 Phases, in order; any failure exits non-zero and prints no result:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -18,10 +19,12 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. holds each kernel against its plain PyTorch version on the card, at
      the shapes of the q100 searches (stage-1 block plan, stage-3 chunk
      shapes, the self-reversal batches and the survivors' stage-2
-     batches), and times both (CUDA events, warm), the stage-3 kernel
-     also beside the substitution gather-sum (profile_smx) it absorbs;
-     then again on seeded random ragged, wide, rectangular, tall and
-     tie-prone inputs;
+     batches), and times both (CUDA events behind a device spin, warm),
+     the two kernels fed by the profiles (with traceback and score only)
+     also beside the substitution gather-sum (profile_smx) they absorb,
+     the walk beside its chain bound; then again on seeded random ragged,
+     wide, rectangular, tall and tie-prone inputs, and the walk on paths
+     across many of its windows and row tiles;
   3. the q100 sensitive all-vs-all through reseek_tpu_torch's
      self_search(engine="device", device="cuda"): the TSV must equal the
      port's host engine (engine="host", the native host code) byte for
@@ -107,7 +110,7 @@ KERNELS = {
                        "reseek_tpu/ops/sw_sweep.py:206", "query_prepass"),
     "sw_align": ("reseek_tpu_torch/csrc/sw_align.cu",
                  "reseek_tpu/ops/sw_pallas.py:252", "q100"),
-    "sw_score": ("reseek_tpu_torch/csrc/sw_traceback.cu",
+    "sw_score": ("reseek_tpu_torch/csrc/sw_align.cu",
                  "reseek_tpu/ops/sw_pallas.py:166", "self_rev"),
     "walk_traceback": ("reseek_tpu_torch/csrc/postalign.cu",
                        "reseek_tpu/ops/postalign_jax.py:20", "q100"),
@@ -128,12 +131,17 @@ NATIVE = ("encoder.native", "align.mkf_native", "ops.lddt", "ops.sw_native",
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 # float32 operations of one DP cell: the recurrence's adds and maxima or
-# compares (stage 3 adds the 7 adds of the 8-feature score); LDDT's per
-# unordered column pair: two squared distances, two roots, the difference
-# and its four threshold compares
-CELL_OPS = {"mu_sweep": 10, "sw_score_sweep": 10, "sw_score": 10,
+# compares (the profile-fed kernels add the 7 adds of the 8-feature
+# score); LDDT's per unordered column pair: two squared distances, two
+# roots, the difference and its four threshold compares
+CELL_OPS = {"mu_sweep": 10, "sw_score_sweep": 10, "sw_score": 17,
             "sw_align": 17}
 LDDT_PAIR_OPS = 24
+# the walk's chain bound: one shared-memory load-to-use latency a step, an
+# estimate in SM cycles (the card's maximum SM clock from nvidia-smi)
+SMEM_LATENCY_CYCLES = 30
+# the device spin that time_ms queues its calls behind (~10 ms)
+SPIN_CYCLES = 20_000_000
 
 
 def fail(msg: str) -> None:
@@ -141,23 +149,36 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     try:
         return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip()
     except (OSError, subprocess.TimeoutExpired) as exc:
         return f"nvidia-smi unavailable ({exc})"
 
 
+@functools.lru_cache(maxsize=1)
+def sm_clock_hz() -> float:
+    """The first card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    line = card_line("clocks.max.sm").splitlines()[0]
+    try:
+        return float(line.split()[0]) * 1e6
+    except (IndexError, ValueError):
+        fail(f"no SM clock from nvidia-smi: {line!r}")
+
+
 def time_ms(fn, reps: int, warm: int = 1) -> float:
-    """Mean milliseconds per call on the current stream (CUDA events)."""
+    """Mean milliseconds per call on the current stream (CUDA events).  The
+    calls are queued behind a device spin of SPIN_CYCLES, so a kernel
+    shorter than its wrapper's host time is timed on the device, not at
+    the rate the host launches it."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -269,21 +290,24 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
     from reseek_tpu_torch.ops.postalign import (lddt_batch, lddt_batch_ref,
                                                 walk_traceback_batch,
                                                 walk_traceback_batch_ref)
-    from reseek_tpu_torch.ops.sw_align import sw_align, sw_align_ref
+    from reseek_tpu_torch.ops.sw_align import (sw_align, sw_align_ref,
+                                               sw_score_profiles,
+                                               sw_score_profiles_ref)
     from reseek_tpu_torch.ops.sw_sweep import (mu_lane_bits, mu_sw_scores,
                                                mu_sw_scores_ref,
                                                sw_score_sweep,
                                                sw_score_sweep_ref)
-    from reseek_tpu_torch.ops.sw_wavefront import sw_score, sw_score_ref
+    from reseek_tpu_torch.ops.sw_wavefront import sw_score_ref
     from reseek_tpu_torch.search.engine import aligned_coords
     p = pipe.params
     res = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None, "cells": -1,
                "shape": None} for k in KERNELS}
 
     def record(name, err, cells, shape, ms_fn, plain_fn, reps, nbytes, ops,
-               extra=()):
-        """Keep the error; time at the largest shape, with its bound and
-        the ``extra`` (key, timed function) pairs."""
+               extra=(), values=None):
+        """Keep the error; time at the largest shape, with its bound, the
+        ``extra`` (key, timed function) pairs and the computed ``values``
+        ({key: value})."""
         r = res[name]
         r["max_abs_err"] = max(r["max_abs_err"], float(err))
         if cells > r["cells"]:
@@ -294,6 +318,7 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
             r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
             for key, fn in extra:
                 r[key] = time_ms(fn, reps)
+            r.update(values or {})
 
     # K1: first block of every stage-1 shape group (the self-search), then
     # the first batch of every stage-1 shape of query-vs-DB and -fast
@@ -369,11 +394,15 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
         rwalk = walk_traceback_batch_ref(tb, best, bi, bj, lea)
         if not all(torch.equal(x, y) for x, y in zip(walk, rwalk)):
             fail(f"walk_traceback != plain at {(nb, lea, leb)}")
-        # data-dependent: the path cells read, the codes and ends written
+        # data-dependent: the path cells read, the codes and ends written;
+        # beside it the chain bound (the longest path, a shared-memory
+        # latency a step)
         record("walk_traceback", 0.0, cells, (nb, lea, leb),
                lambda: walk_traceback_batch(tb, best, bi, bj, lea),
-               lambda: walk_traceback_batch_ref(tb, best, bi, bj, lea), 5,
-               int(walk[2].sum()) + walk[3].numel() + 24 * nb, 0)
+               lambda: walk_traceback_batch_ref(tb, best, bi, bj, lea), 20,
+               int(walk[2].sum()) + walk[3].numel() + 24 * nb, 0,
+               values={"chain_bound_ms": int(walk[2].max())
+                       * SMEM_LATENCY_CYCLES / sm_clock_hz() * 1e3})
 
         cq, ct, valid, n_m = aligned_coords(walk[3], bi, bj, ia, ib,
                                             pipe.coords, min(lea, leb))
@@ -397,35 +426,53 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
         print(f"[2] stage-3 kernels B={nb} LA={lea} LB={leb}: equal "
               f"(lddt err {float(err):.3g}, risky {int(risky.sum())})")
 
-    # K5 exact score at the self-reversal batches (each chain below mkfl
-    # against its reversed profile); K6 float sweep at the survivors'
-    # stage-2 batches, also held to the exact score within SWEEP_TOL
+    # K5 the exact score from the profiles at the self-reversal batches
+    # (each chain below mkfl against its reversed profile), timed beside
+    # the gather-sum it no longer needs
     own = pipe.order[:pipe.dev_end]
-    for name, pairs, prof_b, fn, ref, reps in (
-            ("sw_score", np.stack([own, own], 1), pipe.prof_rev, sw_score,
-             sw_score_ref, 3),
-            ("sw_score_sweep", survivors, pipe.prof, sw_score_sweep,
-             sw_score_sweep_ref, 5)):
-        for le, _rows, ia, ib in pipe.stage2_plan(pairs):
-            s = pipe.stage3_smx(le, le, ia, ib, prof_b)
-            got, want = fn(s, go, ge), ref(s, go, ge)
-            if not torch.equal(got, want):
-                fail(f"{name} != plain at {tuple(s.shape)}")
-            off = float((got - sw_score(s, go, ge)).abs().max())
-            if off > SWEEP_TOL:
-                fail(f"{name} differs from sw_score by {off} at "
-                     f"{tuple(s.shape)}")
-            record(name, (got - want).abs().max(), s.numel(),
-                   tuple(s.shape), lambda: fn(s, go, ge),
-                   lambda: ref(s, go, ge), reps, 4 * s.numel() + 4 * len(s),
-                   s.numel() * CELL_OPS[name])
-            print(f"[2] {name} B={s.shape[0]} L={le}: equal (vs sw_score "
-                  f"{off:.3g})")
-            del s
+    for le, _rows, ia, ib in pipe.stage2_plan(np.stack([own, own], 1)):
+        nb = len(ia)
+        args = (pipe.prof, pipe.prof_rev, ia, ib, pipe.table, le, le, go, ge)
+        got, want = sw_score_profiles(*args), sw_score_profiles_ref(*args)
+        if not torch.equal(got, want):
+            fail(f"sw_score != plain at the self-rev {(nb, le, le)}")
+        cells = nb * le * le
+        record("sw_score", (got - want).abs().max(), cells, (nb, le, le),
+               lambda: sw_score_profiles(*args),
+               lambda: sw_score_profiles_ref(*args), 5,
+               2 * nb * nf * le + 4 * pipe.table.blocks.numel() + 4 * nb,
+               cells * CELL_OPS["sw_score"],
+               [("smx_ms", lambda: pipe.stage3_smx(le, le, ia, ib,
+                                                   pipe.prof_rev))])
+        print(f"[2] sw_score self-rev B={nb} L={le}: equal")
+    # K6 the float sweep at the survivors' stage-2 batches, held to the
+    # exact score of the same pairs within SWEEP_TOL; the exact score equal
+    # to its plain version there too
+    for le, _rows, ia, ib in pipe.stage2_plan(survivors):
+        s = pipe.stage3_smx(le, le, ia, ib)
+        got, want = sw_score_sweep(s, go, ge), sw_score_sweep_ref(s, go, ge)
+        if not torch.equal(got, want):
+            fail(f"sw_score_sweep != plain at {tuple(s.shape)}")
+        exact = sw_score_profiles(pipe.prof, pipe.prof, ia, ib, pipe.table,
+                                  le, le, go, ge)
+        if not torch.equal(exact, sw_score_ref(s, go, ge)):
+            fail(f"sw_score != plain at the survivors' {tuple(s.shape)}")
+        off = float((got - exact).abs().max())
+        if off > SWEEP_TOL:
+            fail(f"sw_score_sweep differs from sw_score by {off} at "
+                 f"{tuple(s.shape)}")
+        record("sw_score_sweep", (got - want).abs().max(), s.numel(),
+               tuple(s.shape), lambda: sw_score_sweep(s, go, ge),
+               lambda: sw_score_sweep_ref(s, go, ge), 5,
+               4 * s.numel() + 4 * len(s),
+               s.numel() * CELL_OPS["sw_score_sweep"])
+        print(f"[2] sw_score_sweep B={s.shape[0]} L={le}: equal (vs "
+              f"sw_score {off:.3g}); sw_score equal")
+        del s
     for name, r in res.items():
         if r["ms"] is None:
             fail(f"{name}: no main-path shape to compare at")
-        smx = "".join(f", {k} {v:.3f}" for k, v in extra_times(r).items())
+        smx = "".join(f", {k} {v:.4f}" for k, v in extra_times(r).items())
         print(f"[2] {name} at {r['shape']}: kernel {r['ms']:.3f} ms, plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}){smx}, max_abs_err {r['max_abs_err']:.3g}")
@@ -449,15 +496,14 @@ def phase_tie_prone(pipe) -> None:
     from reseek_tpu_torch.ops.postalign import (lddt_batch, lddt_batch_ref,
                                                 walk_traceback_batch,
                                                 walk_traceback_batch_ref)
-    from reseek_tpu_torch.ops.smx import (flat_layout, profile_codes,
-                                          profile_smx)
+    from reseek_tpu_torch.ops.smx import flat_layout
     from reseek_tpu_torch.ops.sw_align import (FeatureTable, sw_align,
-                                               sw_align_ref)
+                                               sw_align_ref, sw_score_profiles,
+                                               sw_score_profiles_ref)
     from reseek_tpu_torch.ops.sw_sweep import (mu_sw_scores, mu_sw_scores_ref,
                                                sw_score_sweep,
                                                sw_score_sweep_ref)
-    from reseek_tpu_torch.ops.sw_wavefront import (MAX_LA, sw_score,
-                                                   sw_score_ref)
+    from reseek_tpu_torch.ops.sw_wavefront import sw_score_ref
     rng = np.random.default_rng(0)
     mt, table = pipe.mu_table, pipe.table
     dev = mt.mumx.device
@@ -512,16 +558,15 @@ def phase_tie_prone(pipe) -> None:
                     and float(got[0][1]) == 0.0):
                 fail(f"sw_align/walk != plain on random profiles "
                      f"{(la, lb, few, o, e)}")
-            if la <= MAX_LA:
-                s = profile_smx(profile_codes(prof[ia, :, :la], tab.offsets,
-                                              tab.pad_code),
-                                profile_codes(prof[ib, :, :lb], tab.offsets,
-                                              tab.pad_code), tab.w)
-                if not torch.equal(sw_score(s, o, e), got[0]):
-                    fail(f"sw_score != sw_align's best {(la, lb, few, o, e)}")
-                del s
-    # exact score and float sweep: tie-prone float scores (a few distinct
-    # float32 values) and real float gap penalties, ragged, up to LA 2,048
+            sargs = (prof, prof, ia, ib, tab, la, lb, o, e)
+            score = sw_score_profiles(*sargs)
+            if not (torch.equal(score, sw_score_profiles_ref(*sargs))
+                    and torch.equal(score, got[0])):
+                fail(f"sw_score != plain or sw_align's best "
+                     f"{(la, lb, few, o, e)}")
+    # float sweep: tie-prone float scores (a few distinct float32 values)
+    # and real float gap penalties, ragged, up to LA 2,048, also within
+    # SWEEP_TOL of the exact score where its plain version is quick
     vals = np.float32([-1.3, -0.7, -0.35, 0.2, 0.45, 0.45, 1.1, 2.05])
     for la, lb in ((40, 24), (300, 600), (600, 130), (2048, 96),
                    (100, 2048), (50, 4100)):
@@ -530,12 +575,11 @@ def phase_tie_prone(pipe) -> None:
         s[1] = -1.0
         s = torch.tensor(s, device=dev)
         for o, e in ((-1.5, -0.25), (-0.685533, -0.051881)):
-            exact = sw_score(s, o, e)
             sweep = sw_score_sweep(s, o, e)
-            if not ((la * lb > 2e5
-                     or torch.equal(exact, sw_score_ref(s, o, e)))
-                    and torch.equal(sweep, sw_score_sweep_ref(s, o, e))):
-                fail(f"sw_score/sw_score_sweep != plain on tie-prone "
+            if not (torch.equal(sweep, sw_score_sweep_ref(s, o, e))
+                    and (la * lb > 2e5 or float((sweep - sw_score_ref(
+                        s, o, e)).abs().max()) <= SWEEP_TOL)):
+                fail(f"sw_score_sweep != plain on tie-prone "
                      f"{(la, lb, o, e)}")
     # 20 pairs at three widths, then chunks of 1-3 pairs at 1,024 and
     # 2,048 columns (several blocks a pair)
@@ -555,6 +599,85 @@ def phase_tie_prone(pipe) -> None:
             fail(f"lddt != plain on random coordinates {(n, m)}")
     print("[2] random and tie-prone inputs: every kernel equals its plain "
           "version")
+
+
+def longest_run(codes: torch.Tensor, code: int) -> int:
+    """The longest run of ``code`` in a path's codes."""
+    best = run = 0
+    for c in codes.tolist():
+        run = run + 1 if c == code else 0
+        best = max(best, run)
+    return best
+
+
+def phase_walk_paths(pipe) -> None:
+    """The walk against its plain version, bit for bit, on paths that cross
+    many of its windows and row tiles: q100 self-pairs at 512 and 1,100 a
+    side (a long diagonal; 1,100 takes 8 rows a lane, five row tiles); a
+    profile pair whose path runs a gap of 100 columns at the rows where
+    two tiles meet (the B side is the A side with 100 random columns
+    inserted at row 32 R), at 4 and 8 rows a lane; and seeded float
+    substitution scores whose paths cross tiles, run the main diagonal or
+    join through a 100-column gap, walked on the packed traceback of the
+    plain wavefront."""
+    from reseek_tpu_torch.ops.postalign import (PI, walk_traceback_batch,
+                                                walk_traceback_batch_ref)
+    from reseek_tpu_torch.ops.sw_align import (pack_tb, rows_per_lane,
+                                               sw_align)
+    from reseek_tpu_torch.ops.sw_wavefront import sw_traceback_ref
+    rng = np.random.default_rng(6)
+    go, ge = float(pipe.params.gap_open), float(pipe.params.gap_ext)
+    dev = pipe.prof.device
+
+    def check(what, tb, best, bi, bj, la, min_plen, gap=False):
+        got = walk_traceback_batch(tb, best, bi, bj, la)
+        want = walk_traceback_batch_ref(tb, best, bi, bj, la)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail(f"walk_traceback != plain on {what}")
+        plen = got[2][best > 0]
+        if len(plen) == 0 or int(plen.min()) < min_plen:
+            fail(f"walk on {what}: paths of {plen.tolist()} steps")
+        if gap and min(longest_run(p, PI) for p in got[3][best > 0]) <= 64:
+            fail(f"walk on {what}: no gap of more than 64 columns")
+        print(f"[2] walk on {what}: equal, paths of {int(plen.min())}-"
+              f"{int(plen.max())} steps")
+
+    lens = torch.as_tensor(pipe.sorted_lens)
+    for le in (512, 1100):
+        idx = torch.nonzero(lens >= le).flatten()[:8].to(dev)
+        best, bi, bj, tb = sw_align(pipe.prof, idx, idx, pipe.table, le, le,
+                                    go, ge)
+        check(f"{len(idx)} self-pairs of {le} x {le}", tb, best, bi, bj, le,
+              le - 16)
+    nf = pipe.prof.shape[1]
+    for la in (400, 1100):
+        cut = 32 * rows_per_lane(la)
+        src = int(torch.nonzero(lens >= la).flatten()[0])
+        a = pipe.prof[src, :, :la].cpu().numpy()
+        ins = np.stack([rng.integers(0, n, 100) for n in pipe.table.sizes])
+        b = np.concatenate([a[:, :cut], ins.astype(np.uint8), a[:, cut:]], 1)
+        prof = np.full((2, nf, la + 100), 255, np.uint8)
+        prof[0, :, :la] = a
+        prof[1] = b
+        prof = torch.tensor(prof, device=dev)
+        one = torch.zeros(1, dtype=torch.int64, device=dev)
+        best, bi, bj, tb = sw_align(prof, one, one + 1, pipe.table, la,
+                                    la + 100, go, ge)
+        check(f"a 100-column gap at rows {cut - 1}/{cut}, {la} x {la + 100}",
+              tb, best, bi, bj, la, la, gap=True)
+    for shape, la, lb in (("tiles", 300, 200), ("diagonal", 260, 260),
+                          ("gap", 200, 300)):
+        s = rng.normal(-1.0, 1.0, (4, la, lb)).astype(np.float32)
+        i, j = np.arange(la)[:, None], np.arange(lb)[None, :]
+        on = {"tiles": i == j + 100, "diagonal": i == j,
+              "gap": ((i == j) & (i <= 127))
+              | ((j == i + 100) & (i >= 128))}[shape]
+        s[:, on] = rng.normal(3.0, 0.5, (4, int(on.sum())))
+        s[0] = -1.0
+        best, bi, bj, tb = sw_traceback_ref(torch.tensor(s, device=dev),
+                                            -1.5, -0.25)
+        check(f"float scores, {shape} {la} x {lb}", pack_tb(tb, la, lb),
+              best, bi, bj, la, 190, gap=shape == "gap")
 
 
 def options(columns: str = COLUMNS, mode: str = MODE):
@@ -641,6 +764,26 @@ def phase_replica(chains) -> None:
           f"(hits {drv.hit_count}), stages {json.dumps(drv.device_stats)}, "
           f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
           f"launches {launched.counts}")
+
+
+def phase_walk_alone(pipe, survivors, reps: int = 20) -> None:
+    """The walk alone at the largest q100 stage-3 chunk (the phase-2
+    shape), timed through its wrapper with its defaults; only calls that
+    earlier versions of the port have too, so that this script, copied
+    into a checkout of another version, times that version's walk."""
+    from reseek_tpu_torch.ops.postalign import walk_traceback_batch
+    from reseek_tpu_torch.ops.sw_align import sw_align
+    p = pipe.params
+    lea, leb, _chunk, ia, ib = max(pipe.stage3_plan(survivors),
+                                   key=lambda c: len(c[3]) * c[0] * c[1])
+    best, bi, bj, tb = sw_align(pipe.prof, ia, ib, pipe.table, lea, leb,
+                                float(p.gap_open), float(p.gap_ext))
+    walk = walk_traceback_batch(tb, best, bi, bj, lea)
+    ms = [time_ms(lambda: walk_traceback_batch(tb, best, bi, bj, lea), reps)
+          for _ in range(3)]
+    print(f"[w] walk at {(len(ia), lea, leb)}: {statistics.median(ms):.4f} "
+          f"ms (of {[round(m, 4) for m in ms]}), longest path "
+          f"{int(walk[2].max())} steps")
 
 
 def phase_stage1(chains, reps: int = 7) -> None:
@@ -1025,20 +1168,25 @@ def main() -> int:
         # versions of the Mu filter in one call)
         phase_stage1(replica(chains, REPLICA_CHAINS))
         return 0
-    big = replica(chains, FAST_DB_CHAINS)
-    db = big[:REPLICA_CHAINS]
     params = DSSParams.create(MODE)
     pipe = DeviceSelfSearch(_encode_all(chains, params, with_self_rev=False),
                             params, device=DEVICE)
     survivors = pipe.stage1_survivors()
     print(f"[2] q100 stage-1 survivors: {len(survivors)}")
+    if sys.argv[1:] == ["--walk"]:
+        # phases 0-1, then the walk alone (to compare two versions of it)
+        phase_walk_alone(pipe, survivors)
+        return 0
     res = phase_kernels(pipe, survivors)
     phase_tie_prone(pipe)
+    phase_walk_paths(pipe)
     if sys.argv[1:] == ["--kernels"]:
         # phases 0-2 only: the kernels against their plain versions
         print(json.dumps(res))
         return 0
     del pipe
+    big = replica(chains, FAST_DB_CHAINS)
+    db = big[:REPLICA_CHAINS]
     launches = {}
     launches["q100"], want_self, self_s = phase_q100(chains)
     phase_replica(db)

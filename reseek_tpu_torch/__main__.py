@@ -100,6 +100,9 @@ def cmd_search(args) -> int:
         params.gap_open = -abs(args.gapopen)
     if args.gapext is not None:
         params.gap_ext = -abs(args.gapext)
+    # NOTE: like the reference binary, -dbsize is accepted but the E-value
+    # always uses SCOP40c_DBSIZE=8340 (src/statsig.h:3; the only consumer
+    # of -dbsize is cmd_postmufilter's assert, src/postmufilter.cpp:317)
     open_log(args.log)
     disable_tf32()
 
@@ -197,6 +200,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gap-open penalty (>= 0 convention)")
     p.add_argument("--gapext", type=float,
                    help="gap-extend penalty (>= 0 convention)")
+    p.add_argument("--dbsize", type=int,
+                   help="accepted for reference compatibility (E-values "
+                        "use the fitted SCOP40c constant, like reseek)")
     p.add_argument("--noself", action="store_true")
     p.add_argument("--scores-are-not-evalues", dest="scores_are_not_evalues",
                    action="store_true", help="disable the E-value output gate")

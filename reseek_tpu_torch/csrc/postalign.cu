@@ -4,7 +4,7 @@
 // reseek_tpu/ops/postalign_jax.py that eager PyTorch would run as
 // hundreds of tiny launches per chunk.
 //
-// walk_traceback (replaces postalign_jax.walk_traceback_batch): one thread
+// walk_traceback (replaces postalign_jax.walk_traceback_batch): one warp
 // per pair walks the traceback backward from the best cell, exactly as the
 // scan does on the skewed bytes: the same clamped reads (a read at (i, j)
 // goes to skewed location (clip(i+j), clip(i)), i.e. cell (clip(i),
@@ -12,13 +12,31 @@
 // machine, the stop-without-decrement rule and done0 = best <= 0, with
 // PEND (0) codes after the end.  The traceback is the packed layout of
 // csrc/sw_align.cu (4 bits a cell; rows in strips of R per lane, tiles of
-// 32 R rows, LB + 31 steps a tile).  Bound on the H100: one dependent
-// load per step (latency, not bandwidth); pairs are independent, so all of
-// a chunk's pairs are in flight at once, each in a block of one thread:
-// pairs sharing a warp diverge at every step and wait on each other's
-// scattered loads (the walk at 213 pairs of 512 x 512 took ~3x longer
-// with 128 pairs a block), while a warp each spreads them over the SMs.
-//
+// 32 R rows, LB + 31 steps a tile; cell (i, j) of strip k at step j + k).
+// Bound on the H100: a chain of dependent reads, one a step (about 700
+// at 512 x 512): the latency of a step sets the time, not the bytes.
+// The old design, a thread a pair reading device memory, paid an L2
+// round trip and the full index arithmetic of the clamped read every step.
+// Here a warp walks a pair.  It copies a window of the tile into shared
+// memory, NS = W + 31 consecutive steps of all 32 strips (the columns
+// [j0 - W + 1, j0] of every row of the tile: one contiguous span, 10 KB
+// at W = 128 and R = 4), with 16-byte cp.async copies, and starts copying the
+// window to its left at once, so that a path leaving a window sideways
+// finds the next one in place; only a move to the tile above waits for a
+// copy.  The path only moves up and left, so the step j + k never grows
+// inside a tile and the cells read stay inside a window until it leaves
+// it below its first step or above its tile.  In the window cell (base +
+// rho, c) lies at nibble (c + (rho >> log R) - ws) 32 R + rho, so a step
+// is one shared-memory load and a few integer operations: while the load
+// is in flight the next cell's place is found for both outcomes (M reads
+// the diagonal, D and I the cell itself), and the code picks one.  Reads
+// that leave the window or would be clamped take the exact clamped read.
+// Every lane runs the same walk on the same values (the window reads are
+// broadcasts), so the branches stay uniform and the whole warp is at hand
+// for the copies; the code of step t waits in lane t mod 32, and each
+// group of 32 goes out as one 32-byte store, the PEND tail from all lanes.
+// Pairs are independent, a block each.
+
 // lddt (replaces postalign_jax.lddt_batch, LDDT_mu_fast of src/lddt.cpp):
 // each unordered pair of aligned columns once.  Bound on the H100: the
 // distance work, n(n-1)/2 pairs of ~24 float ops from coordinates staged
@@ -57,71 +75,177 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int WALK_THREADS = 1;      // one pair a block (see above)
 constexpr int LDDT_WARPS = 8;
+constexpr int WALK_W = 128;   // columns of a walk window (32-256 timed alike)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float R0_SQ = 225.0f;
 
+// 16 bytes from device memory to shared memory, asynchronously
+__device__ __forceinline__ void copy16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// c ? a : b as a select that stays one: the walk computes both values
+// while a read is in flight, and a branch would defer them behind it
+__device__ __forceinline__ int pick(bool c, int a, int b) {
+  int r;
+  asm("{\n .reg .pred p;\n setp.ne.b32 p, %1, 0;\n"
+      " selp.b32 %0, %2, %3, p;\n}"
+      : "=r"(r)
+      : "r"((int)c), "r"(a), "r"(b));
+  return r;
+}
+
 template <int R>
-__global__ void __launch_bounds__(WALK_THREADS)
+__global__ void __launch_bounds__(32)
 walk_kernel(const uint8_t* __restrict__ tb, const float* __restrict__ best,
             const int* __restrict__ best_i, const int* __restrict__ best_j,
             int* __restrict__ lo_a, int* __restrict__ lo_b,
-            int* __restrict__ plen, uint8_t* __restrict__ path_rev, int B,
-            int LA, int LB, int Dp) {
-  // R (rows a lane) and the 32 lanes of a tile are powers of two: the
-  // address of a cell is shifts and masks, since each step's load waits
-  // on the index arithmetic before it
+            int* __restrict__ plen, uint8_t* __restrict__ path_rev, int LA,
+            int LB, int Dp, int NS) {
+  // R (rows a lane) and the 32 lanes of a tile are powers of two: a cell's
+  // place is shifts and masks
   constexpr int LOG_R = R == 4 ? 2 : 3;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B) return;
+  constexpr int HALF = R / 2;          // bytes of a word
+  constexpr int TR = 32 * R;           // rows of a tile; nibbles of a step
+  extern __shared__ __align__(16) uint8_t wins[];   // two windows
+  const int p = blockIdx.x;
+  const int lane = threadIdx.x;
   const int steps = Dp + 1;
-  const int tiles = (LA + 32 * R - 1) / (32 * R);
-  const int words = (LB + 31) * 32;               // words of a tile
-  const uint8_t* ptb = tb + (size_t)p * tiles * words * (R / 2);
+  const int tiles = (LA + TR - 1) / TR;
+  const int tile_steps = LB + 31;
+  const size_t tile_bytes = (size_t)tile_steps * 32 * HALF;
+  const uint8_t* ptb = tb + (size_t)p * tiles * tile_bytes;
   uint8_t* out = path_rev + (size_t)p * steps;
-  // the code of skewed location (clip(i+j), clip(i)) of this pair
-  auto at = [&](int i, int j) -> int {
+  // the window walked: bytes [cur, cur + half) of wins hold steps [ws, ws
+  // + NS) of the tile whose first row is base, cell (base + rho, c) at
+  // nibble (c + (rho >> LOG_R) - ws) TR + rho; the other half holds the
+  // window to its left, in flight (nbase -1: none)
+  const int half = NS * 32 * HALF;
+  int cur = 0;
+  int base = 0, ws = 1 << 20;
+  int nbase = -1, nws = 0;
+
+  // copy steps [s0, s0 + NS) of tile rows b0.. to wins + buf, asynchronously
+  auto fetch = [&](int buf, int b0, int s0) {
+    const int n = min(NS, tile_steps - s0) * 32 * HALF;   // 64 B a step
+    const uint8_t* src =
+        ptb + (size_t)(b0 / TR) * tile_bytes + (size_t)s0 * 32 * HALF;
+    for (int o = 16 * lane; o < n; o += 16 * 32)
+      copy16(wins + buf + o, src + o);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // make the window hold step s of the tile at row b0 (the one in flight
+  // if it does), then start copying the window to its left
+  auto move_to = [&](int b0, int s) {
+    __syncwarp();
+    if (b0 == nbase && s >= nws && s < nws + NS) {
+      cur = half - cur;
+      ws = nws;
+    } else {
+      ws = max(s - NS + 1, 0);
+      fetch(cur, b0, ws);
+    }
+    base = b0;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncwarp();
+    nbase = -1;
+    if (ws > 0) {
+      nbase = base;
+      nws = max(ws - NS, 0);
+      fetch(half - cur, base, nws);
+    }
+  };
+  // the code of skewed location (clip(i+j), clip(i)), exactly as the scan
+  // reads it, through the window
+  auto read = [&](int i, int j) -> int {
     const int d = min(max(i + j, 0), Dp - 1);
     const int ic = min(max(i, 0), LA - 1);
     const int jc = d - ic;
     if (jc < 0 || jc >= LB) return 0;
-    const int tile = ic >> (5 + LOG_R);
-    const int k = (ic >> LOG_R) & 31;
-    const int r = ic & (R - 1);
-    const int word = tile * words + (jc + k) * 32 + k;
-    return (ptb[word * (R / 2) + (r >> 1)] >> (4 * (r & 1))) & 15;
+    const int rho = ic & (TR - 1);
+    const int s = jc + (rho >> LOG_R);
+    if (ic - rho != base || s < ws || s >= ws + NS) move_to(ic - rho, s);
+    const int nib = (s - ws) * TR + rho;
+    return (wins[cur + (nib >> 1)] >> ((nib & 1) << 2)) & 15;
   };
+  // cell (i, j)'s byte in wins and nibble shift, and whether it lies in
+  // the window and is read unclamped (i, j >= 0: i <= LA-1 and j <= LB-1
+  // hold, as the walk never moves down or right)
+  struct Place {
+    int at, sh, in;
+  };
+  auto locate = [&](int i, int j) -> Place {
+    const int rho = i - base;
+    const int s = j + (rho >> LOG_R);
+    const int nib = (s - ws) * TR + rho;
+    return {cur + (nib >> 1), (nib & 1) << 2, rho >= 0 && j >= 0 && s >= ws};
+  };
+
   int i = best_i[p] + 1;
   int j = best_j[p] + 1;
-  int st = 0;                     // 0 = M, 1 = D, 2 = I
-  bool done = best[p] <= 0.0f;
-  int n = 0;
+  int st = 0;                    // 0 = M, 1 = D, 2 = I
   int t = 0;
-  for (; t < steps && !done; ++t) {
-    out[t] = (uint8_t)(st + 1);   // PM, PD, PI
-    ++n;
-    if (st == 0) {
-      const int src = at(i - 1, j - 1) & 3;
-      if (src == 3) {             // local start: stop without decrement
-        done = true;
-        continue;
+  uint8_t mine = 0;              // the code of step (t & ~31) + lane
+  if (best[p] > 0.0f) {          // else done0: no step
+    // the cell the next step reads: (i-1, j-1) in M, (i, j) in D and I
+    Place q = locate(i - 1, j - 1);
+    bool going = true;
+    while (going && t < steps) {
+      // the steps whose cells lie in the window, to the end of t's group
+      // of 32: a shared-memory load, and while it is in flight the place
+      // of the next cell for either outcome (M reads the diagonal, D and I
+      // the cell itself); the code picks one, with no branch
+      const int tg = min((t | 31) + 1, steps);
+      while (q.in && t < tg && going) {
+        const int i2 = i - (st != 2);
+        const int j2 = j - (st != 1);
+        const Place qm = locate(i2 - 1, j2 - 1);
+        const Place qp = locate(i2, j2);
+        const int code = wins[q.at] >> q.sh;   // bits above 3 unused
+        // M: src (bits 0-1) in M; D, I: the bit that ends the gap
+        const bool hit = (code & (st == 0 ? 3 : 2 << st)) != 0;
+        const bool m = hit != (st == 0);         // the next state is M
+        const int nst = st == 0 ? (code & 3) : (hit ? 0 : st);
+        if ((t & 31) == lane) mine = (uint8_t)(st + 1);   // PM, PD, PI
+        ++t;
+        going = nst != 3;        // local start: stop without decrement
+        q.at = pick(m, qm.at, qp.at);
+        q.sh = pick(m, qm.sh, qp.sh);
+        q.in = pick(m, qm.in, qp.in);
+        i = pick(going, i2, i);
+        j = pick(going, j2, j);
+        st = pick(going, nst, st);
       }
-      st = src;
-      --i;
-      --j;
-    } else if (st == 1) {
-      st = (at(i, j) & 4) ? 0 : 1;
-      --i;
-    } else {
-      st = (at(i, j) & 8) ? 0 : 2;
-      --j;
+      if (going && t < tg) {     // outside the window, or a clamped read
+        const int code = st == 0 ? read(i - 1, j - 1) : read(i, j);
+        const int nst =
+            st == 0 ? (code & 3) : (((code >> (st + 1)) & 1) ? 0 : st);
+        if ((t & 31) == lane) mine = (uint8_t)(st + 1);
+        ++t;
+        going = nst != 3;
+        if (going) {
+          i -= st != 2;
+          j -= st != 1;
+          st = nst;
+          q = st == 0 ? locate(i - 1, j - 1) : locate(i, j);
+        }
+      }
+      if ((t & 31) == 0) out[t - 32 + lane] = mine;   // a whole group
     }
   }
-  for (; t < steps; ++t) out[t] = 0;   // PEND
-  lo_a[p] = i - 1;
-  lo_b[p] = j - 1;
-  plen[p] = n;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  // the last group's codes, then PEND
+  for (int q = (t & ~31) + lane; q < steps; q += 32)
+    out[q] = q < t ? mine : 0;
+  if (lane == 0) {
+    lo_a[p] = i - 1;
+    lo_b[p] = j - 1;
+    plen[p] = t;                 // a code a step
+  }
 }
 
 __device__ __forceinline__ float dist2(float x0, float y0, float z0,
@@ -260,23 +384,26 @@ lddt_kernel(const float* __restrict__ cq, const float* __restrict__ ct,
 extern "C" {
 
 // tb: csrc/sw_align.cu's packed traceback of a [LA, LB] shape with R rows
-// a lane; best [B] float32, best_i/best_j [B] int32; lo_a/lo_b/plen [B]
-// int32, path_rev [B, Dp+1] uint8 (Dp >= LA+LB-1).
+// a lane, 16-byte aligned; best [B] float32, best_i/best_j [B] int32;
+// lo_a/lo_b/plen [B] int32, path_rev [B, Dp+1] uint8 (Dp >= LA+LB-1).
 int walk_traceback(const void* tb, const void* best, const void* best_i,
                    const void* best_j, void* lo_a, void* lo_b, void* plen,
                    void* path_rev, int B, int LA, int LB, int Dp, int R,
                    void* stream) {
   if (B <= 0) return 0;
-  if (Dp < LA + LB - 1 || (R != 4 && R != 8))
+  if (Dp < LA + LB - 1 || (R != 4 && R != 8) ||
+      reinterpret_cast<uintptr_t>(tb) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (B + WALK_THREADS - 1) / WALK_THREADS;
+  const int ns = WALK_W + 31;
+  // two windows: 40,704 bytes at R = 8
+  const size_t smem = 2 * (size_t)ns * 32 * (R / 2);
   auto kernel = R == 4 ? walk_kernel<4> : walk_kernel<8>;
-  kernel<<<blocks, WALK_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(tb), static_cast<const float*>(best),
       static_cast<const int*>(best_i), static_cast<const int*>(best_j),
       static_cast<int*>(lo_a), static_cast<int*>(lo_b),
-      static_cast<int*>(plen), static_cast<uint8_t*>(path_rev), B, LA, LB,
-      Dp);
+      static_cast<int*>(plen), static_cast<uint8_t*>(path_rev), LA, LB, Dp,
+      ns);
   return cudaGetLastError();
 }
 

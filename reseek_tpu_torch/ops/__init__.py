@@ -9,9 +9,8 @@ def kernel_wrappers():
     """{kernel name: wrapper} for every CUDA kernel of the port."""
     from reseek_tpu_torch.ops.postalign import (lddt_batch,
                                                 walk_traceback_batch)
-    from reseek_tpu_torch.ops.sw_align import sw_align
+    from reseek_tpu_torch.ops.sw_align import sw_align, sw_score_profiles
     from reseek_tpu_torch.ops.sw_sweep import mu_sw_scores, sw_score_sweep
-    from reseek_tpu_torch.ops.sw_wavefront import sw_score
     return {"mu_sweep": mu_sw_scores, "sw_score_sweep": sw_score_sweep,
-            "sw_align": sw_align, "sw_score": sw_score,
+            "sw_align": sw_align, "sw_score": sw_score_profiles,
             "walk_traceback": walk_traceback_batch, "lddt": lddt_batch}

@@ -74,6 +74,8 @@ def walk_traceback_batch(tb: torch.Tensor, best: torch.Tensor,
     if not (best.shape == bi.shape == bj.shape == (b,)):
         raise ValueError("walk_traceback_batch: best/bi/bj must be [B]")
     _cuda_inputs("walk_traceback_batch", tb, best, bi, bj)
+    if tb.data_ptr() % 16:
+        raise ValueError("walk_traceback_batch: tb must be 16-byte aligned")
     dp = diag_count(la, lb)
     dev = tb.device
     lo_a = torch.empty(b, dtype=torch.int32, device=dev)

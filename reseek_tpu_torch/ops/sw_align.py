@@ -17,6 +17,12 @@ tile's rows in strips of R (one per lane of the kernel's warp), and cell
 t, k], low nibble for even r (r = the row within the strip).  Cells at i
 >= LA and (step, strip) slots without a column hold 0.  ``unpack_tb``
 gives the JAX package's skewed bytes back.
+
+``sw_score_profiles`` is the score-only instantiation of the same kernel
+(counterpart of sw_pallas.py's sw_score_pallas on the engine's
+substitution tensor): best [B] float32 only, the B side read from its own
+profile tensor; its plain version is ``profile_smx`` followed by
+``sw_score_ref``.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ import torch
 
 from reseek_tpu_torch import kernels
 from reseek_tpu_torch.ops.smx import profile_codes, profile_smx
-from reseek_tpu_torch.ops.sw_wavefront import diag_count, sw_traceback_ref
+from reseek_tpu_torch.ops.sw_wavefront import (diag_count, sw_score_ref,
+                                               sw_traceback_ref)
 
 MAX_FEATURES = 8
 MAX_LB = 8192         # B columns the kernel stages in shared memory
@@ -140,6 +147,51 @@ def sw_align(prof: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor,
         float(open_), float(ext), kernels.ptr(best), kernels.ptr(bi),
         kernels.ptr(bj), kernels.ptr(tb), kernels.ptr(scratch))
     return best, bi, bj, tb
+
+
+@kernels.counted
+def sw_score_profiles(prof: torch.Tensor, prof_b: torch.Tensor,
+                      ia: torch.Tensor, ib: torch.Tensor, table: FeatureTable,
+                      la: int, lb: int, open_: float,
+                      ext: float) -> torch.Tensor:
+    """Score only: pairs (prof[ia], prof_b[ib]) of profiles [N, F, L] uint8
+    (prof_b of prof's shape, e.g. the reversed chains'), DP shape [la, lb]
+    -> best local score [B] float32 (>= 0), bit-equal to sw_align's best."""
+    if prof.device.type == "cpu":
+        return sw_score_profiles_ref(prof, prof_b, ia, ib, table, la, lb,
+                                     open_, ext)
+    _check(prof, ia, ib, table, la, lb, open_, ext)
+    if (prof_b.dtype != torch.uint8 or prof_b.shape != prof.shape
+            or prof_b.device != prof.device or not prof_b.is_contiguous()):
+        raise ValueError("sw_score_profiles: prof_b must be a contiguous "
+                         "uint8 tensor of prof's shape and device")
+    b = int(ia.shape[0])
+    r = rows_per_lane(la)
+    best = torch.empty(b, dtype=torch.float32, device=prof.device)
+    if b == 0:
+        return best
+    scratch = (torch.empty((b, lb, 3), dtype=torch.float32,
+                           device=prof.device)
+               if -(-la // (32 * r)) > KERNEL_WARPS else best)
+    sizes = (ctypes.c_int * len(table.sizes))(*table.sizes)
+    kernels.launch(
+        sw_score_profiles, "sw_score_profiles", prof, kernels.ptr(prof),
+        kernels.ptr(prof_b), kernels.ptr(ia), kernels.ptr(ib),
+        kernels.ptr(table.blocks), table.blocks.numel(), sizes,
+        len(table.sizes), prof.shape[2], b, la, lb, r, float(open_),
+        float(ext), kernels.ptr(best), kernels.ptr(scratch))
+    return best
+
+
+def sw_score_profiles_ref(prof: torch.Tensor, prof_b: torch.Tensor,
+                          ia: torch.Tensor, ib: torch.Tensor,
+                          table: FeatureTable, la: int, lb: int,
+                          open_: float, ext: float) -> torch.Tensor:
+    """Plain version: the gather-sum substitution tensor (profile_smx),
+    then the score-only wavefront sw_score_ref."""
+    ca = profile_codes(prof[ia, :, :la], table.offsets, table.pad_code)
+    cb = profile_codes(prof_b[ib, :, :lb], table.offsets, table.pad_code)
+    return sw_score_ref(profile_smx(ca, cb, table.w), open_, ext)
 
 
 def sw_align_ref(prof: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Bit-exact Smith-Waterman wavefront, counterpart of
-reseek_tpu/ops/sw_pallas.py (sw_traceback_pallas, sw_score_pallas) and
-ops/sw_jax.py.
+"""Bit-exact Smith-Waterman wavefront on a substitution tensor S, plain
+PyTorch, counterpart of reseek_tpu/ops/sw_pallas.py (sw_traceback_pallas,
+sw_score_pallas) and ops/sw_jax.py.
 
 Same per-cell float32 arithmetic and tie rules as the Pallas kernels'
 ``_step`` (itself ops/sw_np.py, src/sw.cpp:79-212).  The traceback keeps
@@ -8,11 +8,10 @@ the JAX package's skewed layout at this public function: tb [Dp, B, LA]
 uint8 with tb[d, b, i] = src | 4*e_pref | 8*f_pref for cell (i, d-i), Dp =
 LA+LB-1 rounded up to 8.  Only cells with 0 <= d-i < LB are defined.
 
-``sw_score`` (score only, equal to sw_traceback_ref's best bit for bit)
-launches the CUDA kernel of csrc/sw_traceback.cu on CUDA tensors and runs
-``sw_score_ref``, its plain version, on CPU tensors.  ``sw_traceback_ref``
-is the plain traceback wavefront; on the card, stage 3 runs
-ops/sw_align.py, which builds its substitution scores in the kernel.
+``sw_traceback_ref`` (traceback) and ``sw_score_ref`` (score only, equal
+to sw_traceback_ref's best bit for bit) are the plain versions of the
+kernels of ops/sw_align.py, which build their substitution scores from
+the profiles on the card.
 """
 
 from __future__ import annotations
@@ -20,41 +19,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from reseek_tpu_torch import kernels
-
 NEG = np.float32(-9e9)
 K_DIAGS = 8      # diagonal-count padding of the Pallas kernel's layout
-MAX_LA = 8192
 
 
 def diag_count(la: int, lb: int) -> int:
     """Dp: LA+LB-1 diagonals rounded up to a multiple of K_DIAGS."""
     return -(-(la + lb - 1) // K_DIAGS) * K_DIAGS
-
-
-def _check(name: str, s: torch.Tensor) -> None:
-    if s.dtype != torch.float32 or s.dim() != 3:
-        raise TypeError(f"{name}: s must be float32 [B, LA, LB]")
-    if not s.is_contiguous():
-        raise ValueError(f"{name}: s must be contiguous")
-    if s.shape[1] > MAX_LA:
-        raise ValueError(f"{name}: LA {s.shape[1]} > {MAX_LA}")
-
-
-@kernels.counted
-def sw_score(s: torch.Tensor, open_: float, ext: float) -> torch.Tensor:
-    """s [B, LA, LB] float32 (NEG-padded) -> best local score [B] float32
-    (>= 0), bit-equal to sw_traceback_ref's best."""
-    if s.device.type == "cpu":
-        return sw_score_ref(s, open_, ext)
-    _check("sw_score", s)
-    b, la, lb = s.shape
-    best = torch.zeros(b, dtype=torch.float32, device=s.device)
-    if b == 0 or la == 0 or lb == 0:
-        return best
-    kernels.launch(sw_score, "sw_score", s, kernels.ptr(s),
-                   kernels.ptr(best), b, la, lb, float(open_), float(ext))
-    return best
 
 
 def _wavefront_ref(s: torch.Tensor, open_: float, ext: float, trace: bool):
@@ -128,7 +99,7 @@ def sw_traceback_ref(s: torch.Tensor, open_: float, ext: float):
 
 
 def sw_score_ref(s: torch.Tensor, open_: float, ext: float) -> torch.Tensor:
-    """Plain version of sw_score: the running max of every diagonal's H
+    """Score only: the running max of every diagonal's H
     (out-of-band lanes sit near NEG and never reach it), floored at 0, as
     the Pallas ``_score_kernel`` keeps its bestv."""
     best = torch.zeros(s.shape[0], dtype=torch.float32, device=s.device)

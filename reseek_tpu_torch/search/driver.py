@@ -272,8 +272,12 @@ def _query_search_device(queries: List[Chain], db_iter, params: DSSParams,
             long_pairs = pairs[is_long]
             dev_pairs = pairs[~is_long]
             stats["mu_pairs"] += len(dev_pairs)
+            mu_vals = {}
             if params.omega > 0 and len(dev_pairs):
                 mu = pipe.stage1_scores(dev_pairs)
+                if "muscore" in options.columns:
+                    mu_vals = {(int(a), int(b)): float(v)
+                               for (a, b), v in zip(dev_pairs, mu)}
                 dev_pairs = dev_pairs[mu >= params.omega]
             stats["survivors"] += len(dev_pairs)
             for i, f in sr_futs.items():
@@ -287,6 +291,11 @@ def _query_search_device(queries: List[Chain], db_iter, params: DSSParams,
                 fwd_displayed=_fwd_displayed(options))
             _add_stats(stats, pipe)
             stats["chunks"] += 1
+            # the stage-1 values, keyed (DB, query) as the pairs ran; the
+            # long pairs keep the host aligner's
+            for key, v in mu_vals.items():
+                if key in dev_results:
+                    dev_results[key].mu_score = v
             by_pair = {(a - nq, b): r
                        for (a, b), r in dev_results.items() if r.path}
             for t_i, q_i, f in mkf_futs:

@@ -12,9 +12,10 @@ query-vs-DB and the -fast pipeline's stage 2.
     mask comes back as bools.  ``stage1_scores`` gives the filter value of
     explicit pairs instead;
   - stage 2, score only (``stage2_scores``): the profile substitution
-    tensor of each pair swept by the float row sweep, or by the bit-exact
-    wavefront (``exact``, e.g. the self-reversal scores against reversed
-    profiles); it serves the optional prepasses of ``align_survivors``;
+    tensor of each pair swept by the float row sweep, or the bit-exact
+    score-only wavefront on the profiles (``exact``, e.g. the
+    self-reversal scores against reversed profiles); it serves the
+    optional prepasses of ``align_survivors``;
   - stage 3 on the survivors: SW with traceback on the pairs' profiles,
     substitution scores built in the kernel (ops/sw_align.py), the
     backward walk, the aligned-column coordinate gather and LDDT
@@ -63,9 +64,9 @@ from reseek_tpu_torch.ops.postalign import (PD, PI, PM, lddt_batch,
                                             walk_traceback_batch)
 from reseek_tpu_torch.ops.smx import (PAD_BYTE, flat_layout, mu_table,
                                       profile_codes, profile_smx)
-from reseek_tpu_torch.ops.sw_align import FeatureTable, sw_align
+from reseek_tpu_torch.ops.sw_align import (FeatureTable, sw_align,
+                                           sw_score_profiles)
 from reseek_tpu_torch.ops.sw_sweep import MuTable, mu_sw_scores, sw_score_sweep
-from reseek_tpu_torch.ops.sw_wavefront import sw_score
 from reseek_tpu_torch.parallel.mesh import MeshLike, as_mesh
 
 # Cell budgets of the per-launch device batches (DP cells per launch);
@@ -613,12 +614,13 @@ class DeviceSelfSearch:
                       exact: bool = False) -> np.ndarray:
         """Full-profile SW scores of (i, j) original-index pairs.
 
-        By default the float row sweep (ops/sw_sweep.sw_score_sweep),
-        whose rounding differs from the reference by up to ~1e-3: gate
-        with STAGE2_GUARD.  exact=True runs the bit-exact wavefront score
-        (ops/sw_wavefront.sw_score), for scores that are reported, such as
-        the self-reversal scores.  b_side_rev scores against the reversed
-        chains' profiles."""
+        By default the float row sweep (ops/sw_sweep.sw_score_sweep) on
+        the gather-sum substitution tensor, whose rounding differs from the
+        reference by up to ~1e-3: gate with STAGE2_GUARD.  exact=True runs
+        the bit-exact score-only kernel on the profiles
+        (ops/sw_align.sw_score_profiles; no substitution tensor), for
+        scores that are reported, such as the self-reversal scores.
+        b_side_rev scores against the reversed chains' profiles."""
         t0 = self._clock()
         p = self.params
         out = np.zeros(len(pairs_orig), np.float32)
@@ -626,15 +628,20 @@ class DeviceSelfSearch:
             return out
         if b_side_rev:
             self.build_rev_profiles()
-        score = sw_score if exact else sw_score_sweep
+        go, ge = float(p.gap_open), float(p.gap_ext)
         jobs = []
         for le, rr in self._stage2_chunks(pairs_orig):
             v = self._view(len(jobs))
-            s = v.stage3_smx(le, le, v._sorted_idx(pairs_orig[rr, 0]),
-                             v._sorted_idx(pairs_orig[rr, 1]),
-                             v.prof_rev if b_side_rev else v.prof)
-            jobs.append((rr, score(s, float(p.gap_open), float(p.gap_ext))))
-            del s
+            ia = v._sorted_idx(pairs_orig[rr, 0])
+            ib = v._sorted_idx(pairs_orig[rr, 1])
+            prof_b = v.prof_rev if b_side_rev else v.prof
+            if exact:
+                jobs.append((rr, sw_score_profiles(v.prof, prof_b, ia, ib,
+                                                   v.table, le, le, go, ge)))
+            else:
+                s = v.stage3_smx(le, le, ia, ib, prof_b)
+                jobs.append((rr, sw_score_sweep(s, go, ge)))
+                del s
         for (rr, _), sc in zip(jobs, self._fetch([x for _, x in jobs])):
             out[rr] = sc
         self.seconds["stage2"] = self._clock() - t0
@@ -688,7 +695,8 @@ class DeviceSelfSearch:
                    prof_b: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Profile substitution tensor [n, lea, leb] of sorted-index pairs
         (ia, ib); the B side from ``prof_b`` (default: the profiles).  For
-        stage 2; stage 3 builds its scores in the kernel."""
+        the float row sweep of stage 2; stage 3 and the exact stage 2 build
+        their scores in the kernel."""
         prof_b = self.prof if prof_b is None else prof_b
         ca = profile_codes(self.prof[ia, :, :lea], self.offsets,
                            self.pad_code)

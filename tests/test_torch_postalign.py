@@ -18,7 +18,7 @@ from reseek_tpu.ops import postalign_jax
 from reseek_tpu.ops.lddt import lddt_mu_fast
 from reseek_tpu.ops.sw_np import NEG
 from reseek_tpu.ops.sw_pallas import sw_traceback_pallas
-from reseek_tpu_torch.ops.postalign import (MAX_CLUSTER, lddt_batch,
+from reseek_tpu_torch.ops.postalign import (MAX_CLUSTER, PI, lddt_batch,
                                             lddt_batch_ref, lddt_cluster,
                                             walk_traceback_batch,
                                             walk_traceback_batch_ref)
@@ -31,16 +31,64 @@ LDDT_TOL = 1e-6
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("seed,integer", [(0, True), (1, False)])
-def test_walk_matches_jax(seed, integer):
+def _walk_case(rng, shape):
+    """Seeded S batches: None, ten random ragged pairs of 30 x 45; "tiles",
+    300 x 200 (three row tiles of the packed layout at R = 4) with a
+    positive diagonal from row 100 to the last; "diagonal", self-pairs of
+    260 residues (a long diagonal); "gap", 200 x 300 with diagonals that
+    join only through a gap of 100 columns at rows 127/128, the last row of
+    the first tile and the first of the second.  Row 0 of each batch has
+    no positive cell."""
+    if shape is None:
+        return None
+    la, lb = {"tiles": (300, 200), "diagonal": (260, 260),
+              "gap": (200, 300)}[shape]
+    b = 4
+    s = rng.normal(-1.0, 1.0, (b, la, lb)).astype(np.float32)
+    i = np.arange(la)[:, None]
+    j = np.arange(lb)[None, :]
+    if shape == "tiles":
+        on = i == j + 100
+    elif shape == "diagonal":
+        on = i == j
+    else:
+        on = ((i == j) & (i <= 127)) | ((j == i + 100) & (i >= 128))
+    s[:, on] = rng.normal(3.0, 0.5, (b, int(on.sum())))
+    s[0] = -1.0
+    return s
+
+
+def _longest_run(codes, code) -> int:
+    best = run = 0
+    for c in codes:
+        run = run + 1 if c == code else 0
+        best = max(best, run)
+    return best
+
+
+@pytest.mark.parametrize("seed,integer,shape", [
+    pytest.param(0, True, None, id="0-True"),
+    pytest.param(1, False, None, id="1-False"),
+    pytest.param(2, False, "tiles", id="tiles"),
+    pytest.param(3, False, "diagonal", id="diagonal"),
+    pytest.param(4, True, "gap", id="gap")])
+def test_walk_matches_jax(seed, integer, shape):
+    """The plain walk over the packed layout against the JAX scan on the
+    Pallas traceback, exactly: ragged random pairs, and paths that cross
+    row tiles and many 64-column windows of the kernel."""
     rng = np.random.default_rng(seed)
-    b, la, lb = 10, 30, 45
-    s = np.full((b, la, lb), NEG, np.float32)
-    for k in range(b):
-        na, nb = rng.integers(3, la + 1), rng.integers(3, lb + 1)
-        s[k, :na, :nb] = (rng.integers(-3, 4, (na, nb)) if integer
-                          else rng.normal(0, 2, (na, nb)))
-    s[0] = -1.0      # no positive cell: empty path
+    s = _walk_case(rng, shape)
+    if s is None:
+        b, la, lb = 10, 30, 45
+        s = np.full((b, la, lb), NEG, np.float32)
+        for k in range(b):
+            na, nb = rng.integers(3, la + 1), rng.integers(3, lb + 1)
+            s[k, :na, :nb] = (rng.integers(-3, 4, (na, nb)) if integer
+                              else rng.normal(0, 2, (na, nb)))
+        s[0] = -1.0      # no positive cell: empty path
+    elif integer:
+        s = np.round(s)
+    la, lb = s.shape[1:]
     best, bi, bj, tb = sw_traceback_pallas(jnp.asarray(s), -1.5, -0.25)
     want = postalign_jax.walk_traceback_batch(tb, best, bi, bj)
     # the port's walk reads the packed layout of its stage-3 kernel
@@ -50,6 +98,14 @@ def test_walk_matches_jax(seed, integer):
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w))
     assert got[2][0] == 0
+    if shape is not None:
+        lo_a, plen, path = got[0].numpy(), got[2].numpy(), got[3].numpy()
+        assert (plen[1:] > 190).all() and (lo_a[1:] < 128).all()
+        assert (np.asarray(bi)[1:] >= 128).all()
+    if shape == "gap":
+        # a run of more than 64 I codes, from row 128's column 228 to row
+        # 127's column 127
+        assert min(_longest_run(p, PI) for p in path[1:]) > 64
 
 
 def _aligned_columns(rng, chains, n_pairs, m):

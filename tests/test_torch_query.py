@@ -203,3 +203,40 @@ def test_cli_db_and_fast_db(chains, db_path, query_host, tmp_path):
                            DSSParams.create("fast"), _opts("fast"), want,
                            engine="host", prefilter_mode="idxt")
     assert fout.read_text() == want.getvalue()
+
+
+def test_query_search_muscore_matches_host(chains):
+    """The device query path reports each pair's Mu filter value (the
+    stage-1 score of the pair as it ran, DB side A) in `muscore`, as the
+    port's host engine does."""
+    columns = "query+target+evalue+muscore"
+    queries, db = [chains[18], chains[21]], chains[:12]
+    runs = {}
+    for engine, kw in (("host", {}), ("device", {"device": "cpu"})):
+        out = io.StringIO()
+        torch_driver.query_search(queries, db, DSSParams.create("sensitive"),
+                                  _opts("sensitive", columns), out,
+                                  engine=engine, **kw)
+        runs[engine] = out.getvalue()
+    assert runs["device"] == runs["host"]
+    assert "1a53__A\t1a04_A\t1.1\t33\n" in runs["device"].splitlines(True)
+
+
+def test_cli_dbsize_is_accepted_and_changes_nothing(chains, db_path,
+                                                    tmp_path):
+    """`--dbsize` is taken and ignored, as by reseek_tpu: E-values always
+    use the SCOP40c constant."""
+    qpath = tmp_path / "q2.cal"
+    with open(qpath, "w") as f:
+        write_cal([chains[18], chains[21]], f)
+    outs = []
+    for extra in ([], ["--dbsize", "8340"]):
+        out = tmp_path / f"q{len(extra)}.tsv"
+        proc = subprocess.run(
+            [sys.executable, "-m", "reseek_tpu_torch", "search", str(qpath),
+             "--sensitive", "--db", db_path, "--columns", COLUMNS,
+             "--engine", "host", "--device", "cpu", "-o", str(out), *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr
+        outs.append(out.read_text())
+    assert outs[0] == outs[1] and outs[0].count("\n") > 0

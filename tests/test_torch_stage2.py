@@ -65,6 +65,27 @@ def test_stage2_exact_equals_host_score(setup):
     assert np.array_equal(got, want)
 
 
+def test_stage2_exact_builds_no_substitution_tensor(setup, monkeypatch):
+    """The exact path scores the profiles (sw_score_profiles), in both
+    orientations of the B side: stage3_smx, the gather-sum, never runs."""
+    params, ecs, _, port, short, pairs = setup
+
+    def refuse(*_a, **_k):
+        raise AssertionError("stage3_smx called on the exact path")
+
+    monkeypatch.setattr(DeviceSelfSearch, "stage3_smx", refuse)
+    got = port.stage2_scores(pairs[:10], exact=True)
+    want = np.array([_exact_fwd_score(params, ecs[i].profile,
+                                      ecs[j].profile) for i, j in pairs[:10]],
+                    np.float32)
+    assert np.array_equal(got, want)
+    rev = port.self_rev_scores_device()
+    host = np.array([self_rev_score(ec, params) for ec in ecs], np.float32)
+    assert np.array_equal(rev[short], host[short])
+    with pytest.raises(AssertionError, match="stage3_smx"):
+        port.stage2_scores(pairs[:10])
+
+
 def test_stage2_sweep_within_guard(setup):
     """The float row sweep differs from the exact score by rounding only,
     far inside the engine's STAGE2_GUARD; and from the JAX engine's sweep
