@@ -7,6 +7,8 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --kernels   # phases 0-2 only
     python3 chip_smoke.py --stage1    # phases 0-1, the replica's stage 1
     python3 chip_smoke.py --walk      # phases 0-1, the walk alone
+    python3 chip_smoke.py --sweep     # phases 0-1, the float sweep alone
+    python3 chip_smoke.py --sass [NAME]   # phases 0-1, kernels' SASS opcodes
 
 Phases, in order; any failure exits non-zero and prints no result:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -20,11 +22,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      the shapes of the q100 searches (stage-1 block plan, stage-3 chunk
      shapes, the self-reversal batches and the survivors' stage-2
      batches), and times both (CUDA events behind a device spin, warm),
-     the two kernels fed by the profiles (with traceback and score only)
-     also beside the substitution gather-sum (profile_smx) they absorb,
-     the walk beside its chain bound; then again on seeded random ragged,
-     wide, rectangular, tall and tie-prone inputs, and the walk on paths
-     across many of its windows and row tiles;
+     the three kernels fed by the profiles (with traceback, the exact
+     score and the float sweep) also beside the substitution gather-sum
+     (profile_smx) they absorb, the walk beside its chain bound; then again on seeded random
+     ragged, wide, rectangular, tall and tie-prone inputs (the float
+     sweep up to 8,192 columns, and on pairs whose path crosses a warp
+     boundary through a gap), and the walk on paths across many of its
+     windows and row tiles;
   3. the q100 sensitive all-vs-all through reseek_tpu_torch's
      self_search(engine="device", device="cuda"): the TSV must equal the
      port's host engine (engine="host", the native host code) byte for
@@ -106,7 +110,7 @@ TEN = list(range(10))
 KERNELS = {
     "mu_sweep": ("reseek_tpu_torch/csrc/mu_wavefront.cu",
                  "reseek_tpu/ops/sw_sweep.py:327", "q100"),
-    "sw_score_sweep": ("reseek_tpu_torch/csrc/mu_sweep.cu",
+    "sw_score_sweep": ("reseek_tpu_torch/csrc/sw_sweep.cu",
                        "reseek_tpu/ops/sw_sweep.py:206", "query_prepass"),
     "sw_align": ("reseek_tpu_torch/csrc/sw_align.cu",
                  "reseek_tpu/ops/sw_pallas.py:252", "q100"),
@@ -134,7 +138,7 @@ PEAK_FP32_S = 67e12
 # compares (the profile-fed kernels add the 7 adds of the 8-feature
 # score); LDDT's per unordered column pair: two squared distances, two
 # roots, the difference and its four threshold compares
-CELL_OPS = {"mu_sweep": 10, "sw_score_sweep": 10, "sw_score": 17,
+CELL_OPS = {"mu_sweep": 10, "sw_score_sweep": 17, "sw_score": 17,
             "sw_align": 17}
 LDDT_PAIR_OPS = 24
 # the walk's chain bound: one shared-memory load-to-use latency a step, an
@@ -282,11 +286,44 @@ def phase_build() -> None:
     kernels.lib()
 
 
+def gather_sum(pipe, lea: int, leb: int, ia, ib, prof_b=None):
+    """The profile substitution tensor [n, lea, leb] of sorted-index pairs
+    (ia, ib), the B side from ``prof_b`` (default: the profiles): the
+    gather-sum that the profile-fed kernels absorb, their yardstick."""
+    from reseek_tpu_torch.ops.smx import profile_codes, profile_smx
+    prof_b = pipe.prof if prof_b is None else prof_b
+    ca = profile_codes(pipe.prof[ia, :, :lea], pipe.offsets, pipe.pad_code)
+    cb = profile_codes(prof_b[ib, :, :leb], pipe.offsets, pipe.pad_code)
+    return profile_smx(ca, cb, pipe.w)
+
+
+def phase_sass(pattern: str) -> None:
+    """Opcode counts of the SASS of each kernel whose mangled name holds
+    ``pattern``, from cuobjdump -sass of the library phase 1 built: what
+    a kernel issues, beside the ptxas report."""
+    import collections
+    import re
+    import shutil
+    from reseek_tpu_torch import kernels
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([exe, "-sass", str(kernels.build().path)],
+                          capture_output=True, text=True, timeout=300).stdout
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+"        # the address
+                    r"(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")   # opcode
+    for block in text.split("Function : ")[1:]:
+        name = block.split()[0]
+        if pattern in name:
+            ops = collections.Counter(m.group(1) for m in op.finditer(block))
+            print(f"[sass] {name}: {sum(ops.values())} instructions; "
+                  + ", ".join(f"{k} {n}" for k, n in ops.most_common(20)))
+
+
 def phase_kernels(pipe, survivors: np.ndarray) -> dict:
     """Each kernel against its plain version at the main path's shapes.
     Returns {kernel: {max_abs_err, ms, plain_ms, bound_ms, bound_by, ...}}
-    (times and bound at the largest shape; the stage-3 kernel also with
-    ``smx_ms``, the gather-sum it absorbs, timed alone)."""
+    (times and bound at the largest shape; the profile-fed kernels also
+    with ``smx_ms``, the gather-sum they absorb, timed alone)."""
     from reseek_tpu_torch.ops.postalign import (lddt_batch, lddt_batch_ref,
                                                 walk_traceback_batch,
                                                 walk_traceback_batch_ref)
@@ -296,8 +333,8 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
     from reseek_tpu_torch.ops.sw_sweep import (mu_lane_bits, mu_sw_scores,
                                                mu_sw_scores_ref,
                                                sw_score_sweep,
-                                               sw_score_sweep_ref)
-    from reseek_tpu_torch.ops.sw_wavefront import sw_score_ref
+                                               sw_score_sweep_profiles_ref,
+                                               sweep_layout)
     from reseek_tpu_torch.search.engine import aligned_coords
     p = pipe.params
     res = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None, "cells": -1,
@@ -388,7 +425,7 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
                lambda: sw_align_ref(*args), 3,
                nb * nf * (lea + leb) + 4 * pipe.table.blocks.numel()
                + cells // 2 + 12 * nb, cells * CELL_OPS["sw_align"],
-               [("smx_ms", lambda: pipe.stage3_smx(lea, leb, ia, ib))])
+               [("smx_ms", lambda: gather_sum(pipe, lea, leb, ia, ib))])
 
         walk = walk_traceback_batch(tb, best, bi, bj, lea)
         rwalk = walk_traceback_batch_ref(tb, best, bi, bj, lea)
@@ -442,33 +479,45 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
                lambda: sw_score_profiles_ref(*args), 5,
                2 * nb * nf * le + 4 * pipe.table.blocks.numel() + 4 * nb,
                cells * CELL_OPS["sw_score"],
-               [("smx_ms", lambda: pipe.stage3_smx(le, le, ia, ib,
-                                                   pipe.prof_rev))])
+               [("smx_ms", lambda: gather_sum(pipe, le, le, ia, ib,
+                                              pipe.prof_rev))])
         print(f"[2] sw_score self-rev B={nb} L={le}: equal")
-    # K6 the float sweep at the survivors' stage-2 batches, held to the
-    # exact score of the same pairs within SWEEP_TOL; the exact score equal
-    # to its plain version there too
+    # K6 the float sweep from the profiles at the survivors' stage-2
+    # batches: bit-equal to its plain version (the gather-sum, then the row
+    # sweep), and within SWEEP_TOL of the exact score of the same pairs,
+    # which equals its own plain version there; timed beside the
+    # gather-sum it no longer needs.  Its bound counts the cells this data
+    # needs: rows and columns up to each pair's chain ends (no other cell
+    # can raise the best); the full squares' in square_bound_ms
+    lens = torch.as_tensor(pipe.sorted_lens)
     for le, _rows, ia, ib in pipe.stage2_plan(survivors):
-        s = pipe.stage3_smx(le, le, ia, ib)
-        got, want = sw_score_sweep(s, go, ge), sw_score_sweep_ref(s, go, ge)
+        nb = len(ia)
+        args = (pipe.prof, pipe.prof, ia, ib, pipe.table, le, le, go, ge)
+        got = sw_score_sweep(*args)
+        want = sw_score_sweep_profiles_ref(*args)
         if not torch.equal(got, want):
-            fail(f"sw_score_sweep != plain at {tuple(s.shape)}")
-        exact = sw_score_profiles(pipe.prof, pipe.prof, ia, ib, pipe.table,
-                                  le, le, go, ge)
-        if not torch.equal(exact, sw_score_ref(s, go, ge)):
-            fail(f"sw_score != plain at the survivors' {tuple(s.shape)}")
+            fail(f"sw_score_sweep != plain at {(nb, le, le)}")
+        exact = sw_score_profiles(*args)
+        if not torch.equal(exact, sw_score_profiles_ref(*args)):
+            fail(f"sw_score != plain at the survivors' {(nb, le, le)}")
         off = float((got - exact).abs().max())
         if off > SWEEP_TOL:
             fail(f"sw_score_sweep differs from sw_score by {off} at "
-                 f"{tuple(s.shape)}")
-        record("sw_score_sweep", (got - want).abs().max(), s.numel(),
-               tuple(s.shape), lambda: sw_score_sweep(s, go, ge),
-               lambda: sw_score_sweep_ref(s, go, ge), 5,
-               4 * s.numel() + 4 * len(s),
-               s.numel() * CELL_OPS["sw_score_sweep"])
-        print(f"[2] sw_score_sweep B={s.shape[0]} L={le}: equal (vs "
-              f"sw_score {off:.3g}); sw_score equal")
-        del s
+                 f"{(nb, le, le)}")
+        cells = nb * le * le
+        real = int((lens[ia.cpu()].clamp(max=le)
+                    * lens[ib.cpu()].clamp(max=le)).sum())
+        nbytes = 2 * nb * nf * le + 4 * pipe.table.blocks.numel() + 4 * nb
+        record("sw_score_sweep", (got - want).abs().max(), cells,
+               (nb, le, le), lambda: sw_score_sweep(*args),
+               lambda: sw_score_sweep_profiles_ref(*args), 5, nbytes,
+               real * CELL_OPS["sw_score_sweep"],
+               [("smx_ms", lambda: gather_sum(pipe, le, le, ia, ib))],
+               values={"square_bound_ms": bound(
+                   nbytes, cells * CELL_OPS["sw_score_sweep"])[0]})
+        print(f"[2] sw_score_sweep B={nb} L={le}: equal (V, warps a pair "
+              f"{sweep_layout(le)}; vs sw_score {off:.3g}); sw_score equal;"
+              f" real cells {real}")
     for name, r in res.items():
         if r["ms"] is None:
             fail(f"{name}: no main-path shape to compare at")
@@ -480,8 +529,9 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
 
 
 def extra_times(r: dict) -> dict:
-    """The extra timings of a kernel's phase-2 result: the stage-3
-    kernel's gather-sum yardstick, LDDT's times per cluster size."""
+    """The extra timings of a kernel's phase-2 result: the profile-fed
+    kernels' gather-sum yardstick, the float sweep's other warp counts,
+    LDDT's times per cluster size, the float sweep's full-square bound."""
     return {k: v for k, v in r.items() if k.endswith("_ms")
             and k not in ("ms", "plain_ms", "bound_ms")}
 
@@ -491,8 +541,9 @@ def phase_tie_prone(pipe) -> None:
     q100 shapes do not reach: ragged rows, wide rows (the other lane-count
     variants), random profiles on rectangular and tall shapes (several
     passes of the stage-3 kernel) and tie-prone ones (two letters a
-    feature), a pair with no positive cell, tie-prone float substitution
-    scores, 0.1 A-rounded coordinates."""
+    feature), a pair with no positive cell, the float sweep on such
+    profiles up to MAX_LB and on paths through a gap across a warp
+    boundary, 0.1 A-rounded coordinates."""
     from reseek_tpu_torch.ops.postalign import (lddt_batch, lddt_batch_ref,
                                                 walk_traceback_batch,
                                                 walk_traceback_batch_ref)
@@ -502,8 +553,8 @@ def phase_tie_prone(pipe) -> None:
                                                sw_score_profiles_ref)
     from reseek_tpu_torch.ops.sw_sweep import (mu_sw_scores, mu_sw_scores_ref,
                                                sw_score_sweep,
-                                               sw_score_sweep_ref)
-    from reseek_tpu_torch.ops.sw_wavefront import sw_score_ref
+                                               sw_score_sweep_profiles_ref,
+                                               sweep_layout)
     rng = np.random.default_rng(0)
     mt, table = pipe.mu_table, pipe.table
     dev = mt.mumx.device
@@ -533,18 +584,23 @@ def phase_tie_prone(pipe) -> None:
     table3 = FeatureTable.build(torch.tensor(w3, device=dev),
                                 torch.tensor(off3, dtype=torch.int64,
                                              device=dev))
+    def profiles(tab, n, length, few):
+        """[n, F, length] uint8 profiles on the card: PAD_BYTE past random
+        chain ends, row 0 all padding; few: two letters a feature."""
+        prof = np.full((n, len(tab.sizes), length), 255, np.uint8)
+        for k in range(1, n):
+            ln = rng.integers(1, length + 1)
+            for f, size in enumerate(tab.sizes):
+                prof[k, f, :ln] = rng.integers(0, 2 if few else size, ln)
+        return torch.tensor(prof, device=dev)
+
     for tab, n, length, la, lb, few in ((table, 24, 600, 600, 130, False),
                                         (table, 24, 256, 40, 256, True),
                                         (table, 24, 1100, 1024, 1100, True),
                                         (table, 16, 2100, 2100, 300, False),
                                         (table, 6, 9000, 8500, 96, False),
                                         (table3, 24, 700, 700, 300, False)):
-        prof = np.full((n, len(tab.sizes), length), 255, np.uint8)
-        for k in range(1, n):
-            ln = rng.integers(1, length + 1)
-            for f, size in enumerate(tab.sizes):
-                prof[k, f, :ln] = rng.integers(0, 2 if few else size, ln)
-        prof = torch.tensor(prof, device=dev)
+        prof = profiles(tab, n, length, few)
         ia = torch.tensor(rng.integers(0, n, n), device=dev)
         ib = torch.tensor(rng.integers(0, n, n), device=dev)
         ia[1] = 0
@@ -564,23 +620,67 @@ def phase_tie_prone(pipe) -> None:
                     and torch.equal(score, got[0])):
                 fail(f"sw_score != plain or sw_align's best "
                      f"{(la, lb, few, o, e)}")
-    # float sweep: tie-prone float scores (a few distinct float32 values)
-    # and real float gap penalties, ragged, up to LA 2,048, also within
+    # float sweep on random profiles: ragged chain ends, row 0 all padding
+    # (pair 1 has no positive cell), few = two letters a feature; every
+    # lane-count variant (V = 1-16 at one warp a pair, 2-16 warps up to
+    # MAX_LB), the 8-feature table and table3, both penalty pairs; within
     # SWEEP_TOL of the exact score where its plain version is quick
-    vals = np.float32([-1.3, -0.7, -0.35, 0.2, 0.45, 0.45, 1.1, 2.05])
-    for la, lb in ((40, 24), (300, 600), (600, 130), (2048, 96),
-                   (100, 2048), (50, 4100)):
-        s = vals[rng.integers(0, len(vals), (12, la, lb))]
-        s[ragged(12, la, lb)] = -9e9
-        s[1] = -1.0
-        s = torch.tensor(s, device=dev)
-        for o, e in ((-1.5, -0.25), (-0.685533, -0.051881)):
-            sweep = sw_score_sweep(s, o, e)
-            if not (torch.equal(sweep, sw_score_sweep_ref(s, o, e))
-                    and (la * lb > 2e5 or float((sweep - sw_score_ref(
-                        s, o, e)).abs().max()) <= SWEEP_TOL)):
-                fail(f"sw_score_sweep != plain on tie-prone "
-                     f"{(la, lb, o, e)}")
+    for tab, n, la, lb, few in ((table, 12, 40, 24, False),
+                                (table, 12, 70, 50, True),
+                                (table, 12, 2048, 96, True),
+                                (table3, 12, 600, 130, False),
+                                (table, 12, 200, 400, False),
+                                (table, 12, 300, 600, True),
+                                (table, 8, 100, 2048, False),
+                                (table3, 6, 50, 4100, False),
+                                (table, 4, 40, 8192, True)):
+        prof = profiles(tab, n, max(la, lb), few)
+        ia = torch.tensor(rng.integers(0, n, n), device=dev)
+        ib = torch.tensor(rng.integers(1, n, n), device=dev)
+        ia[1] = 0
+        for o, e in ((go, ge), (-1.5, -0.25)):
+            args = (prof, prof, ia, ib, tab, la, lb, o, e)
+            sweep = sw_score_sweep(*args)
+            if not (torch.equal(sweep, sw_score_sweep_profiles_ref(*args))
+                    and float(sweep[1]) == 0.0
+                    and (la * lb > 2e5 or float((sweep - sw_score_profiles(
+                        *args)).abs().max()) <= SWEEP_TOL)):
+                fail(f"sw_score_sweep != plain on random profiles "
+                     f"{(la, lb, few, o, e)}")
+    # a path whose gap opens in the last columns of a warp and resumes in
+    # the next warp or a later one: the B side is a q100 chain with g
+    # random columns inserted after column cw - 2 + d (cw a warp's first
+    # column; d = 1 puts one random column first), so the path's F term
+    # at column cw or cw + 1 is one a warp reads after its barrier
+    lens = torch.as_tensor(pipe.sorted_lens)
+    nf = pipe.prof.shape[1]
+    for la, cw, g in ((400, 256, 150), (712, 512, 600), (700, 512, 4000)):
+        src = int(torch.nonzero(lens >= la).flatten()[0])
+        a = pipe.prof[src, :, :la].cpu().numpy()
+        prof = np.full((3, nf, la + g + 1), 255, np.uint8)
+        prof[0, :, :la] = a
+        for d in (0, 1):
+            ins = np.stack([rng.integers(0, k, g) for k in table.sizes])
+            first = np.stack([rng.integers(0, k, d) for k in table.sizes])
+            prof[1 + d, :, :la + g + d] = np.concatenate(
+                [first, a[:, :cw - 1], ins, a[:, cw - 1:]], 1)
+        prof = torch.tensor(prof, device=dev)
+        zero = torch.zeros(2, dtype=torch.int64, device=dev)
+        ib = torch.tensor([1, 2], device=dev)
+        lb = la + g + 1
+        args = (prof, prof, zero, ib, table, la, lb, go, ge)
+        sweep = sw_score_sweep(*args)
+        head = sw_score_sweep_profiles_ref(prof, prof, zero, ib, table,
+                                           cw - 1, cw, go, ge)
+        if not (torch.equal(sweep, sw_score_sweep_profiles_ref(*args))
+                and bool((sweep > head).all())):
+            fail(f"sw_score_sweep != plain, or the gap unused, on a gap "
+                 f"after column {cw - 2} ({sweep.tolist()}, head "
+                 f"{head.tolist()})")
+        print(f"[2] sw_score_sweep across a warp boundary at {cw} "
+              f"({la} x {lb}, V and warps {sweep_layout(lb)}): equal, "
+              f"{[round(x, 2) for x in sweep.tolist()]} above the head "
+              f"{[round(x, 2) for x in head.tolist()]}")
     # 20 pairs at three widths, then chunks of 1-3 pairs at 1,024 and
     # 2,048 columns (several blocks a pair)
     for m, n in ((7, 20), (700, 20), (2048, 20), (1024, 1), (1024, 3),
@@ -784,6 +884,40 @@ def phase_walk_alone(pipe, survivors, reps: int = 20) -> None:
     print(f"[w] walk at {(len(ia), lea, leb)}: {statistics.median(ms):.4f} "
           f"ms (of {[round(m, 4) for m in ms]}), longest path "
           f"{int(walk[2].max())} steps")
+
+
+def phase_sweep_alone(pipe, survivors, reps: int = 5) -> None:
+    """The float sweep alone at the largest survivors' stage-2 chunk (the
+    phase-2 shape), three times each: the kernel, the gather-sum with the
+    kernel (the stage-2 prepass's device work per chunk) and the
+    gather-sum alone.  Only calls that earlier versions of the port have
+    too, so that this script, copied into a checkout of a version whose
+    sweep is fed a substitution tensor, times that version: there the
+    kernel is timed on a prebuilt S."""
+    import inspect
+    from reseek_tpu_torch.ops import sw_sweep
+    p = pipe.params
+    go, ge = float(p.gap_open), float(p.gap_ext)
+    le, _rows, ia, ib = max(pipe.stage2_plan(survivors),
+                            key=lambda c: len(c[2]) * c[0] * c[0])
+    smx = functools.partial(gather_sum, pipe, le, le, ia, ib)
+    fed_s = len(inspect.signature(sw_sweep.sw_score_sweep).parameters) == 3
+    if fed_s:
+        s = smx()
+        kernel = functools.partial(sw_sweep.sw_score_sweep, s, go, ge)
+
+        def both():
+            return sw_sweep.sw_score_sweep(smx(), go, ge)
+    else:
+        kernel = both = functools.partial(
+            sw_sweep.sw_score_sweep, pipe.prof, pipe.prof, ia, ib,
+            pipe.table, le, le, go, ge)
+    got = {name: [time_ms(fn, reps) for _ in range(3)]
+           for name, fn in (("kernel", kernel), ("smx+kernel", both),
+                            ("smx", smx))}
+    print(f"[p1] float sweep at {(len(ia), le, le)}, "
+          f"{'fed S' if fed_s else 'fed the profiles'}: "
+          + json.dumps({k: [round(x, 4) for x in v] for k, v in got.items()}))
 
 
 def phase_stage1(chains, reps: int = 7) -> None:
@@ -1162,6 +1296,11 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_build()
+    if sys.argv[1:2] == ["--sass"]:
+        # phases 0-1, then the opcodes of the kernels named (default: the
+        # float sweep)
+        phase_sass(sys.argv[2] if len(sys.argv) > 2 else "sweep_kernel")
+        return 0
     chains = read_chains(Q100)
     if sys.argv[1:] == ["--stage1"]:
         # phases 0-1, then the replica's stage 1 alone (to compare two
@@ -1176,6 +1315,10 @@ def main() -> int:
     if sys.argv[1:] == ["--walk"]:
         # phases 0-1, then the walk alone (to compare two versions of it)
         phase_walk_alone(pipe, survivors)
+        return 0
+    if sys.argv[1:] == ["--sweep"]:
+        # phases 0-1, then the float sweep alone (to compare two versions)
+        phase_sweep_alone(pipe, survivors)
         return 0
     res = phase_kernels(pipe, survivors)
     phase_tie_prone(pipe)

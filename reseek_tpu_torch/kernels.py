@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mu_wavefront.cu", "mu_sweep.cu", "sw_align.cu", "postalign.cu")
+SOURCES = ("mu_wavefront.cu", "sw_sweep.cu", "sw_align.cu", "postalign.cu")
 LIB_NAME = "libreseek_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -43,7 +43,8 @@ _IP = ctypes.POINTER(ctypes.c_int)     # host int array
 # argument types of each C entry (pointers and the stream as void*)
 _SIGNATURES = {
     "mu_wavefront": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "sw_score_sweep": [_P, _P, _I, _I, _I, _F, _F, _P],
+    "sw_score_sweep": [_P, _P, _P, _P, _P, _I, _IP, _I, _I, _I, _I, _I, _I,
+                       _I, _F, _F, _P, _P],
     "sw_align": [_P, _P, _P, _P, _I, _IP, _I, _I, _I, _I, _I, _I, _F, _F, _P,
                  _P, _P, _P, _P, _P],
     "sw_score_profiles": [_P, _P, _P, _P, _P, _I, _IP, _I, _I, _I, _I, _I,

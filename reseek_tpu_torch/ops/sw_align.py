@@ -89,7 +89,9 @@ class FeatureTable:
         return int(self.w.shape[0]) - 1
 
 
-def _check(prof, ia, ib, table, la, lb, open_, ext) -> None:
+def check_pairs(prof, ia, ib, table, la, lb, open_, ext) -> None:
+    """Raise unless the profiles, the pair indices, the table, the DP shape
+    and the penalties are what the profile-fed kernels take."""
     if prof.dtype != torch.uint8 or prof.dim() != 3:
         raise TypeError("sw_align: prof must be uint8 [N, F, L]")
     if ia.dtype != torch.int64 or ib.dtype != torch.int64:
@@ -117,6 +119,15 @@ def _check(prof, ia, ib, table, la, lb, open_, ext) -> None:
             raise ValueError("sw_align: tensors must be contiguous")
 
 
+def check_b_side(prof, prof_b, name: str) -> None:
+    """Raise unless prof_b is a contiguous uint8 tensor of prof's shape and
+    device (the B side of a score-only kernel)."""
+    if (prof_b.dtype != torch.uint8 or prof_b.shape != prof.shape
+            or prof_b.device != prof.device or not prof_b.is_contiguous()):
+        raise ValueError(f"{name}: prof_b must be a contiguous uint8 tensor "
+                         "of prof's shape and device")
+
+
 @kernels.counted
 def sw_align(prof: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor,
              table: FeatureTable, la: int, lb: int, open_: float,
@@ -126,7 +137,7 @@ def sw_align(prof: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor,
     bi [B] int32, bj [B] int32, packed tb (module notes))."""
     if prof.device.type == "cpu":
         return sw_align_ref(prof, ia, ib, table, la, lb, open_, ext)
-    _check(prof, ia, ib, table, la, lb, open_, ext)
+    check_pairs(prof, ia, ib, table, la, lb, open_, ext)
     b = int(ia.shape[0])
     dev = prof.device
     best = torch.empty(b, dtype=torch.float32, device=dev)
@@ -160,11 +171,8 @@ def sw_score_profiles(prof: torch.Tensor, prof_b: torch.Tensor,
     if prof.device.type == "cpu":
         return sw_score_profiles_ref(prof, prof_b, ia, ib, table, la, lb,
                                      open_, ext)
-    _check(prof, ia, ib, table, la, lb, open_, ext)
-    if (prof_b.dtype != torch.uint8 or prof_b.shape != prof.shape
-            or prof_b.device != prof.device or not prof_b.is_contiguous()):
-        raise ValueError("sw_score_profiles: prof_b must be a contiguous "
-                         "uint8 tensor of prof's shape and device")
+    check_pairs(prof, ia, ib, table, la, lb, open_, ext)
+    check_b_side(prof, prof_b, "sw_score_profiles")
     b = int(ia.shape[0])
     r = rows_per_lane(la)
     best = torch.empty(b, dtype=torch.float32, device=prof.device)

@@ -11,20 +11,26 @@ Two entries, two CUDA sources:
   or int32 on Hopper's DPX instructions, with the lane type that
   ``mu_lane_bits`` proves cannot wrap.  Its table is a ``MuTable``, built
   and checked once.
-- ``sw_score_sweep``: the row sweep over a float32 substitution tensor
-  (csrc/mu_sweep.cu, the score-only stage-2 prepass; replaces
-  sw_score_sweep_pallas).  It follows the op order of the JAX
-  ``_row_step`` (F as kext + cummax(H + open - kext), kext = float(k) *
-  ext), so the kernel equals its plain version bit for bit; the closed
+- ``sw_score_sweep``: the float row sweep of the score-only stage-2
+  prepass (csrc/sw_sweep.cu; replaces sw_score_sweep_pallas and the
+  gather-sum that fed it a substitution tensor).  It takes the pairs'
+  uint8 profiles and the per-feature tables, as sw_align.sw_score_profiles
+  does, and builds each cell's score in the kernel in profile_smx's
+  order, so no [B, LA, LB] tensor exists.  It follows the op order of the
+  JAX ``_row_step`` (F as kext + cummax(H + open - kext), kext = float(k)
+  * ext), so the kernel equals its plain version bit for bit; the closed
   form of F rounds differently from the wavefront, by up to ~1e-3 on
-  profile scores, and callers gate with a guard band.
+  profile scores, and callers gate with a guard band.  ``sweep_layout``
+  gives the kernel's columns a lane and warps a pair.
 
 Each launches its kernel on CUDA tensors and runs its plain version
-(``mu_sw_scores_ref``, ``sw_score_sweep_ref``) on CPU tensors.
+(``mu_sw_scores_ref``; ``sw_score_sweep_profiles_ref``: profile_smx, then
+``sw_score_sweep_ref``, the row sweep over an S) on CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Tuple
 
@@ -32,9 +38,15 @@ import numpy as np
 import torch
 
 from reseek_tpu_torch import kernels
+from reseek_tpu_torch.ops.smx import profile_codes, profile_smx
+from reseek_tpu_torch.ops.sw_align import (FeatureTable, check_b_side,
+                                           check_pairs)
 
 NEG = np.float32(-9e9)
 MAX_LB = 8192
+SWEEP_MAX_V = 16           # B columns a lane of the float sweep
+SWEEP_MAX_LETTERS = 63     # alphabet size: 4 x letter fits a byte
+SWEEP_MAX_SLOTS = 256      # the tables' rows (alphabet sizes + 1, summed)
 MU_PAD = 36                # the padding letter
 PAD16 = -32768             # the int16 table's padding entries
 MAX_ENTRY = 32767          # |entry| bound of the 36x36 block
@@ -170,26 +182,57 @@ def mu_sw_scores(a: torch.Tensor, b: torch.Tensor, table: MuTable,
     return out
 
 
+def sweep_layout(lb: int) -> Tuple[int, int]:
+    """(V columns a lane, warps a pair) of the float sweep at LB columns:
+    one warp a pair up to 512 columns, V the smallest power of two with
+    32 V >= LB; then V = 8 over LB / 256 warps up to 4,096 columns, V = 16
+    over LB / 512 warps above.  (On an H100 one warp a pair was the
+    fastest up to 512 columns, and four warps of 8 columns the fastest at
+    34 x 1,024 x 1,024: PERF.md §6.)"""
+    if not 1 <= lb <= MAX_LB:
+        raise ValueError(f"sw_score_sweep: LB {lb} outside [1, {MAX_LB}]")
+    if lb > 4096:
+        return SWEEP_MAX_V, -(-lb // (32 * SWEEP_MAX_V))
+    if lb > 512:
+        return 8, -(-lb // 256)
+    v = 1
+    while 32 * v < lb:
+        v *= 2
+    return v, 1
+
+
 @kernels.counted
-def sw_score_sweep(s: torch.Tensor, open_: float,
+def sw_score_sweep(prof: torch.Tensor, prof_b: torch.Tensor,
+                   ia: torch.Tensor, ib: torch.Tensor, table: FeatureTable,
+                   la: int, lb: int, open_: float,
                    ext: float) -> torch.Tensor:
-    """Best local SW score [B] float32 (>= 0) of each substitution matrix
-    s [B, LA, LB] float32 (NEG at padding)."""
-    if s.device.type == "cpu":
-        return sw_score_sweep_ref(s, open_, ext)
-    if s.dtype != torch.float32 or s.dim() != 3:
-        raise TypeError("sw_score_sweep: s must be float32 [B, LA, LB]")
-    if not s.is_contiguous():
-        raise ValueError("sw_score_sweep: s must be contiguous")
-    bsz, la, lb = s.shape
-    if lb > MAX_LB:
-        raise ValueError(f"sw_score_sweep: LB {lb} > {MAX_LB}")
-    out = torch.zeros(bsz, dtype=torch.float32, device=s.device)
-    if bsz == 0 or la == 0 or lb == 0:
-        return out
-    kernels.launch(sw_score_sweep, "sw_score_sweep", s, kernels.ptr(s),
-                   kernels.ptr(out), bsz, la, lb, float(open_), float(ext))
-    return out
+    """Float row sweep: pairs (prof[ia], prof_b[ib]) of profiles [N, F, L]
+    uint8 (PAD_BYTE past a chain's end; prof_b of prof's shape), DP shape
+    [la, lb] -> best local score [B] float32 (>= 0), bit-equal to
+    ``sw_score_sweep_profiles_ref``."""
+    if prof.device.type == "cpu":
+        return sw_score_sweep_profiles_ref(prof, prof_b, ia, ib, table, la,
+                                           lb, open_, ext)
+    check_pairs(prof, ia, ib, table, la, lb, open_, ext)
+    check_b_side(prof, prof_b, "sw_score_sweep")
+    if (max(table.sizes) > SWEEP_MAX_LETTERS
+            or sum(n + 1 for n in table.sizes) > SWEEP_MAX_SLOTS):
+        raise ValueError(f"sw_score_sweep: alphabets above "
+                         f"{SWEEP_MAX_LETTERS} letters or "
+                         f"{SWEEP_MAX_SLOTS} table rows")
+    v, nw = sweep_layout(lb)
+    b = int(ia.shape[0])
+    best = torch.empty(b, dtype=torch.float32, device=prof.device)
+    if b == 0:
+        return best
+    sizes = (ctypes.c_int * len(table.sizes))(*table.sizes)
+    kernels.launch(
+        sw_score_sweep, "sw_score_sweep", prof, kernels.ptr(prof),
+        kernels.ptr(prof_b), kernels.ptr(ia), kernels.ptr(ib),
+        kernels.ptr(table.blocks), table.blocks.numel(), sizes,
+        len(table.sizes), prof.shape[2], b, la, lb, v, nw, float(open_),
+        float(ext), kernels.ptr(best))
+    return best
 
 
 def _sweep_ref(rows, nrows: int, bsz: int, lb: int, open_: float,
@@ -237,10 +280,21 @@ def mu_sw_scores_ref(a: torch.Tensor, b: torch.Tensor, mumx: torch.Tensor,
                       open_, ext, a.device)
 
 
+def sw_score_sweep_profiles_ref(prof: torch.Tensor, prof_b: torch.Tensor,
+                                ia: torch.Tensor, ib: torch.Tensor,
+                                table: FeatureTable, la: int, lb: int,
+                                open_: float, ext: float) -> torch.Tensor:
+    """Plain version of sw_score_sweep: the gather-sum substitution tensor
+    (profile_smx), then the row sweep over it."""
+    ca = profile_codes(prof[ia, :, :la], table.offsets, table.pad_code)
+    cb = profile_codes(prof_b[ib, :, :lb], table.offsets, table.pad_code)
+    return sw_score_sweep_ref(profile_smx(ca, cb, table.w), open_, ext)
+
+
 def sw_score_sweep_ref(s: torch.Tensor, open_: float,
                        ext: float) -> torch.Tensor:
-    """Plain version of sw_score_sweep: the row sweep over the rows of
-    s."""
+    """The row sweep over the rows of a substitution tensor s [B, LA, LB]
+    float32 (NEG at padding): JAX's sw_score_sweep."""
     bsz, la, lb = s.shape
     if la == 0 or lb == 0:
         return torch.zeros(bsz, dtype=torch.float32, device=s.device)

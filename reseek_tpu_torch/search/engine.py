@@ -11,11 +11,11 @@ query-vs-DB and the -fast pipeline's stage 2.
     kernel launch per block (ops/sw_sweep.py), then Omega gating; the pass
     mask comes back as bools.  ``stage1_scores`` gives the filter value of
     explicit pairs instead;
-  - stage 2, score only (``stage2_scores``): the profile substitution
-    tensor of each pair swept by the float row sweep, or the bit-exact
-    score-only wavefront on the profiles (``exact``, e.g. the
-    self-reversal scores against reversed profiles); it serves the
-    optional prepasses of ``align_survivors``;
+  - stage 2, score only (``stage2_scores``): the float row sweep, or the
+    bit-exact score-only wavefront (``exact``, e.g. the self-reversal
+    scores against reversed profiles), both on the pairs' profiles with
+    the substitution scores built in the kernel; it serves the optional
+    prepasses of ``align_survivors``;
   - stage 3 on the survivors: SW with traceback on the pairs' profiles,
     substitution scores built in the kernel (ops/sw_align.py), the
     backward walk, the aligned-column coordinate gather and LDDT
@@ -62,8 +62,7 @@ from reseek_tpu_torch.encoder.dss import encode_chain
 from reseek_tpu_torch.ops.lddt import lddt_mu_fast
 from reseek_tpu_torch.ops.postalign import (PD, PI, PM, lddt_batch,
                                             walk_traceback_batch)
-from reseek_tpu_torch.ops.smx import (PAD_BYTE, flat_layout, mu_table,
-                                      profile_codes, profile_smx)
+from reseek_tpu_torch.ops.smx import PAD_BYTE, flat_layout, mu_table
 from reseek_tpu_torch.ops.sw_align import (FeatureTable, sw_align,
                                            sw_score_profiles)
 from reseek_tpu_torch.ops.sw_sweep import MuTable, mu_sw_scores, sw_score_sweep
@@ -614,13 +613,13 @@ class DeviceSelfSearch:
                       exact: bool = False) -> np.ndarray:
         """Full-profile SW scores of (i, j) original-index pairs.
 
-        By default the float row sweep (ops/sw_sweep.sw_score_sweep) on
-        the gather-sum substitution tensor, whose rounding differs from the
-        reference by up to ~1e-3: gate with STAGE2_GUARD.  exact=True runs
-        the bit-exact score-only kernel on the profiles
-        (ops/sw_align.sw_score_profiles; no substitution tensor), for
-        scores that are reported, such as the self-reversal scores.
-        b_side_rev scores against the reversed chains' profiles."""
+        By default the float row sweep (ops/sw_sweep.sw_score_sweep),
+        whose rounding differs from the reference by up to ~1e-3: gate
+        with STAGE2_GUARD.  exact=True runs the bit-exact score-only
+        kernel (ops/sw_align.sw_score_profiles), for scores that are
+        reported, such as the self-reversal scores.  Both read the pairs'
+        profiles: no substitution tensor is built.  b_side_rev scores
+        against the reversed chains' profiles."""
         t0 = self._clock()
         p = self.params
         out = np.zeros(len(pairs_orig), np.float32)
@@ -635,13 +634,9 @@ class DeviceSelfSearch:
             ia = v._sorted_idx(pairs_orig[rr, 0])
             ib = v._sorted_idx(pairs_orig[rr, 1])
             prof_b = v.prof_rev if b_side_rev else v.prof
-            if exact:
-                jobs.append((rr, sw_score_profiles(v.prof, prof_b, ia, ib,
-                                                   v.table, le, le, go, ge)))
-            else:
-                s = v.stage3_smx(le, le, ia, ib, prof_b)
-                jobs.append((rr, sw_score_sweep(s, go, ge)))
-                del s
+            score = sw_score_profiles if exact else sw_score_sweep
+            jobs.append((rr, score(v.prof, prof_b, ia, ib, v.table, le, le,
+                                   go, ge)))
         for (rr, _), sc in zip(jobs, self._fetch([x for _, x in jobs])):
             out[rr] = sc
         self.seconds["stage2"] = self._clock() - t0
@@ -689,20 +684,6 @@ class DeviceSelfSearch:
         return [(lea, leb, chunk, self._sorted_idx(chunk[:, 0]),
                  self._sorted_idx(chunk[:, 1]))
                 for lea, leb, chunk in self._stage3_chunks(pairs_orig)]
-
-    def stage3_smx(self, lea: int, leb: int, ia: torch.Tensor,
-                   ib: torch.Tensor,
-                   prof_b: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Profile substitution tensor [n, lea, leb] of sorted-index pairs
-        (ia, ib); the B side from ``prof_b`` (default: the profiles).  For
-        the float row sweep of stage 2; stage 3 and the exact stage 2 build
-        their scores in the kernel."""
-        prof_b = self.prof if prof_b is None else prof_b
-        ca = profile_codes(self.prof[ia, :, :lea], self.offsets,
-                           self.pad_code)
-        cb = profile_codes(prof_b[ib, :, :leb], self.offsets,
-                           self.pad_code)
-        return profile_smx(ca, cb, self.w)
 
     def _stage3_chunk(self, lea: int, leb: int, ia: torch.Tensor,
                       ib: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -65,7 +65,9 @@ def test_gather_sum_smx_equals_build_smx(setup):
     lea = leb = 512
     ia = torch.tensor([0, 3, 7, 11])
     ib = torch.tensor([1, 3, 12, 13])
-    s = port.stage3_smx(lea, leb, ia, ib).numpy()
+    ca = profile_codes(port.prof[ia, :, :lea], port.offsets, port.pad_code)
+    cb = profile_codes(port.prof[ib, :, :leb], port.offsets, port.pad_code)
+    s = profile_smx(ca, cb, port.w).numpy()
     for k in range(len(ia)):
         qa, qb = ecs[order[ia[k]]], ecs[order[ib[k]]]
         want = build_smx(params, qa.profile, qb.profile)

@@ -15,10 +15,13 @@ from reseek_tpu.io.reader import read_chains
 from reseek_tpu.search.driver import _encode_all
 from reseek_tpu.search.engine import DeviceSelfSearch as JaxSelfSearch
 from reseek_tpu.search.engine import STAGE2_GUARD, _exact_fwd_score
+from reseek_tpu_torch.ops import sw_sweep as sweep_mod
+from reseek_tpu_torch.search import engine as engine_mod
 from reseek_tpu_torch.search.engine import DeviceSelfSearch
 
 from test_torch_engine import Q100
 
+plain_sweep = sweep_mod.sw_score_sweep_profiles_ref
 SUBSET = [18, 21, 22, 26, 40, 46, 50, 64, 95, 96, 98, 99]
 # the test workers share the host's cores: one torch thread each keeps the
 # plain versions' many small ops from contending for them
@@ -66,14 +69,23 @@ def test_stage2_exact_equals_host_score(setup):
 
 
 def test_stage2_exact_builds_no_substitution_tensor(setup, monkeypatch):
-    """The exact path scores the profiles (sw_score_profiles), in both
-    orientations of the B side: stage3_smx, the gather-sum, never runs."""
+    """Neither stage-2 path builds a substitution tensor in the engine: the
+    exact path scores the profiles (sw_score_profiles), in both
+    orientations of the B side, and the default path calls the
+    profile-fed float sweep (sw_score_sweep) once a chunk; the engine has
+    no gather-sum of its own (stage3_smx is gone).  On the CPU the sweep
+    runs its plain version and launches nothing."""
     params, ecs, _, port, short, pairs = setup
+    assert not hasattr(DeviceSelfSearch, "stage3_smx")
+    assert not hasattr(engine_mod, "profile_smx")
+    calls = []
 
-    def refuse(*_a, **_k):
-        raise AssertionError("stage3_smx called on the exact path")
+    def counting(*args):
+        calls.append(args[5:7])
+        return plain_sweep(*args)
 
-    monkeypatch.setattr(DeviceSelfSearch, "stage3_smx", refuse)
+    monkeypatch.setattr(sweep_mod, "sw_score_sweep_profiles_ref", counting)
+    launches = sweep_mod.sw_score_sweep.launches
     got = port.stage2_scores(pairs[:10], exact=True)
     want = np.array([_exact_fwd_score(params, ecs[i].profile,
                                       ecs[j].profile) for i, j in pairs[:10]],
@@ -82,8 +94,13 @@ def test_stage2_exact_builds_no_substitution_tensor(setup, monkeypatch):
     rev = port.self_rev_scores_device()
     host = np.array([self_rev_score(ec, params) for ec in ecs], np.float32)
     assert np.array_equal(rev[short], host[short])
-    with pytest.raises(AssertionError, match="stage3_smx"):
-        port.stage2_scores(pairs[:10])
+    assert calls == []
+    sweep = port.stage2_scores(pairs)
+    chunks = port.stage2_plan(pairs)
+    assert calls == [(le, le) for le, _, _, _ in chunks]
+    assert sweep_mod.sw_score_sweep.launches == launches
+    np.testing.assert_allclose(sweep, port.stage2_scores(pairs, exact=True),
+                               rtol=0, atol=1e-3)
 
 
 def test_stage2_sweep_within_guard(setup):

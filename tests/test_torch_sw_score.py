@@ -27,7 +27,9 @@ from reseek_tpu.search.driver import _encode_all
 from reseek_tpu_torch.ops.smx import PAD_BYTE, flat_layout
 from reseek_tpu_torch.ops.sw_align import (FeatureTable, sw_score_profiles,
                                            sw_score_profiles_ref)
-from reseek_tpu_torch.ops.sw_sweep import sw_score_sweep, sw_score_sweep_ref
+from reseek_tpu_torch.ops.sw_sweep import (sw_score_sweep,
+                                           sw_score_sweep_profiles_ref,
+                                           sw_score_sweep_ref)
 from reseek_tpu_torch.ops.sw_wavefront import sw_score_ref, sw_traceback_ref
 
 from test_torch_engine import Q100
@@ -196,18 +198,14 @@ def test_score_profiles_on_reversed_profiles_is_self_rev():
 @pytest.mark.parametrize("wrapper,ref", [(sw_score_profiles,
                                           sw_score_profiles_ref),
                                          (sw_score_sweep,
-                                          sw_score_sweep_ref)])
+                                          sw_score_sweep_profiles_ref)])
 def test_wrapper_on_cpu_runs_plain_version(wrapper, ref):
     """A CPU tensor takes the plain version and launches no kernel."""
     rng = np.random.default_rng(4)
-    if wrapper is sw_score_sweep:
-        args = (torch.from_numpy(_random_batch(rng, 3, 12, 20,
-                                               integer=False)[0]),)
-    else:
-        prof = torch.from_numpy(_profiles(rng, 4, 20)[0])
-        idx = torch.from_numpy(rng.integers(0, 4, 3))
-        args = (prof, prof.flip(2).contiguous(), idx, idx.flip(0), _table(),
-                12, 20)
+    prof = torch.from_numpy(_profiles(rng, 4, 20)[0])
+    idx = torch.from_numpy(rng.integers(0, 4, 3))
+    args = (prof, prof.flip(2).contiguous(), idx, idx.flip(0), _table(), 12,
+            20)
     before = wrapper.launches
     got = wrapper(*args, -1.5, -0.25)
     assert wrapper.launches == before
