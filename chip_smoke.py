@@ -9,6 +9,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --walk      # phases 0-1, the walk alone
     python3 chip_smoke.py --sweep     # phases 0-1, the float sweep alone
     python3 chip_smoke.py --sass [NAME]   # phases 0-1, kernels' SASS opcodes
+    python3 chip_smoke.py --bench-cmds    # phases 0-1, then phase 10
 
 Phases, in order; any failure exits non-zero and prints no result:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -63,7 +64,17 @@ Phases, in order; any failure exits non-zero and prints no result:
      with --resume: rank 0's -o must equal the one-process output each
      time, rank 1 must not create its -o, every rank of the first
      two-rank run must launch the stage-1/3 kernels and every resumed
-     rank must reuse its rows and launch nothing; the three walls.
+     rank must reuse its rows and launch nothing; the three walls;
+ 10. the benchmark commands through the CLI, in-process: on the 139
+     chains of tests/golden/sepq_set.cal, scop40bench --sensitive and
+     --fast, distmx, calibrate and calibrate2 --benchlevel sf on the
+     device engine (--engine device) must print and write what the host
+     engine does, byte for byte, and the sensitive SEPQs must lie within
+     5e-4 of the reference binary's; then scop40bench --fast on a
+     2,048-chain labeled replica (the 101 chains below fast mode's MKF
+     length, 0.25 A noise, seed 17, labels <dom>_r<k>/<scopid> and their
+     lookup): every chain has its self hit, the stage-1/3 kernels
+     launch, the SEPQs lie in [0, 1]; wall, pairs/s, stages, peak memory.
 Each kernel must have been launched by the run of the phase that KERNELS
 names for it (counts set to 0 just before that run, read just after);
 the query, -fast and mesh runs must launch every stage-1/3 kernel too.
@@ -92,6 +103,13 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 Q100 = os.path.join(ROOT, "tests", "golden", "q100.cal")
+SEPQ_CAL = os.path.join(ROOT, "tests", "golden", "sepq_set.cal")
+SEPQ_LOOKUP = os.path.join(ROOT, "tests", "golden", "sepq_set.lookup")
+# the reference binary's -scop40bench on sepq_set (sensitive), and the
+# tolerance of the port's SEPQs against it
+SEPQ_REF = {"SEPQ0.1": 0.3831, "SEPQ1": 0.6057, "SEPQ10": 0.6405}
+SEPQ_TOL = 5e-4
+BENCH_CHAINS = 2048
 COLUMNS = "query+target+qlo+qhi+tlo+thi+evalue+cigar"
 MODE = "sensitive"
 DEVICE = "cuda"
@@ -831,10 +849,11 @@ def phase_q100(chains):
     return launched.counts, want, med
 
 
-def replica(base, n: int):
+def replica(base, n: int, label=lambda lab, r: f"{lab}/r{r}"):
     """n chains: base cycled, plus Gaussian coordinate noise (seed
-    REPLICA_SEED, REPLICA_NOISE A), labels <label>/r<k>; the first 1,024
-    of any size are the same chains."""
+    REPLICA_SEED, REPLICA_NOISE A), labels ``label(label, k)`` for the
+    k-th copy (default <label>/r<k>); the first 1,024 of any size are the
+    same chains."""
     from reseek_tpu_torch.chain import Chain
     rng = np.random.default_rng(REPLICA_SEED)
     chains = []
@@ -842,7 +861,7 @@ def replica(base, n: int):
         c = base[k % len(base)]
         noise = rng.normal(0, REPLICA_NOISE, c.coords.shape).astype(
             np.float32)
-        chains.append(Chain(f"{c.label}/r{k // len(base)}", c.seq,
+        chains.append(Chain(label(c.label, k // len(base)), c.seq,
                             c.coords + noise))
     return chains
 
@@ -1268,6 +1287,146 @@ def phase_multiprocess(db_chains) -> None:
                   f"{json.dumps([{k: st[k] for k in keys} for st in stats])}")
 
 
+def run_cmd(argv) -> tuple:
+    """One command of the port's CLI, in-process: (stdout, stderr, the
+    parsed arguments, on which a search-driven command leaves its driver
+    as ``drv``)."""
+    import contextlib
+    from reseek_tpu_torch.__main__ import build_parser
+    args = build_parser().parse_args(argv)
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = args.fn(args)
+    if rc != 0:
+        fail(f"{' '.join(argv[:2])} exited {rc}:\n{err.getvalue()[-4000:]}")
+    return out.getvalue(), err.getvalue(), args
+
+
+def sepq_of(summary: str) -> dict:
+    """{"SEPQ0.1": x, "SEPQ1": y, "SEPQ10": z} of a scop40bench summary."""
+    try:
+        got = dict(f.split("=") for f in summary.split())
+        return {k: float(got[k]) for k in ("SEPQ0.1", "SEPQ1", "SEPQ10")}
+    except (KeyError, ValueError):
+        fail(f"scop40bench printed no SEPQ summary: {summary!r}")
+
+
+def device_vs_host(cmd, argv, tmp: str, outputs=(), err_lines=()):
+    """``cmd`` on the device engine and on the host engine: stdout, the
+    files named by ``outputs`` (each run writes its own copy) and the
+    stderr lines that start with one of ``err_lines`` must be byte-equal.
+    Returns (the device run's stdout, the device wall, the host wall)."""
+    runs = []
+    for engine in ("device", "host"):
+        paths = {o: os.path.join(tmp, f"{cmd}.{o}.{engine}")
+                 for o in outputs}
+        extra = [x for o in outputs for x in (f"--{o}", paths[o])]
+        t0 = time.perf_counter()
+        out, err, _ = run_cmd([cmd, *argv, *extra, "--engine", engine,
+                               "--device", DEVICE])
+        if engine == "device":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        files = {o: open(p, "rb").read() for o, p in paths.items()}
+        kept = [ln for ln in err.splitlines() if ln.startswith(err_lines)]
+        runs.append((out, files, kept, secs))
+    (dev, dev_files, dev_err, dev_s), (host, host_files, host_err,
+                                       host_s) = runs
+    if dev != host:
+        fail(f"{cmd} {' '.join(argv[1:])}: stdout differs from the host "
+             f"engine:\n{dev}\n{host}")
+    for o in outputs:
+        if dev_files[o] != host_files[o] or not host_files[o]:
+            fail(f"{cmd} {' '.join(argv[1:])}: --{o} differs from the host "
+                 "engine (or is empty)")
+    if dev_err != host_err or (err_lines and not host_err):
+        fail(f"{cmd}: stderr {dev_err} differs from the host's {host_err}")
+    return dev, dev_s, host_s
+
+
+def phase_bench_cmds() -> None:
+    """The SCOP40 benchmark and calibration commands through the port's
+    CLI: on the 139 chains of sepq_set.cal the device engine's output
+    byte-equal to the host engine's (sensitive SEPQs at the reference
+    binary's), then scop40bench --fast on a 2,048-chain labeled replica of
+    its chains below fast mode's MKF length."""
+    from reseek_tpu_torch.constants import DSSParams
+    from reseek_tpu_torch.io.cal import write_cal
+    from reseek_tpu_torch.io.reader import read_chains
+    with tempfile.TemporaryDirectory() as tmp:
+        bench = ["--lookup", SEPQ_LOOKUP]
+        for mode in ("sensitive", "fast"):
+            out, dev_s, host_s = device_vs_host(
+                "scop40bench", [SEPQ_CAL, f"--{mode}", *bench], tmp,
+                ["output"])
+            got = sepq_of(out)
+            if mode == "sensitive":
+                for k, ref in SEPQ_REF.items():
+                    if abs(got[k] - ref) >= SEPQ_TOL:
+                        fail(f"scop40bench --sensitive: {k} {got[k]} is not"
+                             f" within {SEPQ_TOL} of the reference's {ref}")
+            print(f"[10] scop40bench --{mode} on 139 chains: device "
+                  f"{dev_s:.2f} s, host {host_s:.2f} s, byte-equal; "
+                  f"{out.strip()}")
+        _, dev_s, host_s = device_vs_host("distmx", [SEPQ_CAL], tmp,
+                                          ["output"], ("maxts",))
+        print(f"[10] distmx --fast: device {dev_s:.2f} s, host "
+              f"{host_s:.2f} s, --output and maxts byte-equal")
+        out, dev_s, host_s = device_vs_host("calibrate", [SEPQ_CAL], tmp,
+                                            ["output"])
+        print(f"[10] calibrate --fast: device {dev_s:.2f} s, host "
+              f"{host_s:.2f} s, byte-equal; {out.strip().splitlines()[0]}")
+        out, dev_s, host_s = device_vs_host(
+            "calibrate2", [SEPQ_CAL, "--benchlevel", "sf"], tmp, ["output"])
+        print(f"[10] calibrate2 --benchlevel sf: device {dev_s:.2f} s, "
+              f"host {host_s:.2f} s, byte-equal; {out.strip()}")
+
+        # the replica: chains below fast mode's MKF length, relabeled
+        # <dom>_r<k>/<scopid> with the matching lookup
+        mkfl = DSSParams.create("fast").mkfl
+        base = [c for c in read_chains(SEPQ_CAL) if len(c) < mkfl]
+
+        def label(lab, k):
+            dom, _, scopid = lab.partition("/")
+            return f"{dom}_r{k}/{scopid}"
+        chains = replica(base, BENCH_CHAINS, label)
+        cal = os.path.join(tmp, f"replica{BENCH_CHAINS}.cal")
+        lookup = os.path.join(tmp, f"replica{BENCH_CHAINS}.lookup")
+        with open(cal, "w") as f:
+            write_cal(chains, f)
+        with open(lookup, "w") as f:
+            f.writelines("%s\t%s\n" % tuple(c.label.split("/", 1))
+                         for c in chains)
+        hits = os.path.join(tmp, "hits.tsv")
+        n = len(chains)
+        pairs = n * (n + 1) // 2
+        torch.cuda.reset_peak_memory_stats()
+        with Launches() as launched:
+            t0 = time.perf_counter()
+            out, _, args = run_cmd(["scop40bench", cal, "--fast", "--lookup",
+                                    lookup, "--output", hits, "--engine",
+                                    "device", "--device", DEVICE])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launched.require(SEARCH_KERNELS, "the 2,048-chain scop40bench")
+        with open(hits) as f:
+            rows = [ln.split("\t") for ln in f.read().splitlines()]
+        selfs = {r[0] for r in rows if r[0] == r[1]}
+        lacking = {c.label for c in chains} - selfs
+        if lacking:
+            fail(f"scop40bench replica: {len(lacking)} chains lack a self "
+                 f"hit, e.g. {sorted(lacking)[:3]}")
+        got = sepq_of(out)
+        if not all(0.0 <= v <= 1.0 for v in got.values()):
+            fail(f"scop40bench replica: SEPQ outside [0, 1]: {got}")
+        print(f"[10] scop40bench --fast, {n}-chain replica of {len(base)} "
+              f"chains < {mkfl}: {secs:.2f} s, {pairs / secs:.1f} pairs/s "
+              f"over {pairs} pairs, {len(rows)} hits, every self hit; "
+              f"stages {json.dumps(args.drv.device_stats)}; {out.strip()}; "
+              f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
+              f"launches {launched.counts}")
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -1300,6 +1459,10 @@ def main() -> int:
         # phases 0-1, then the opcodes of the kernels named (default: the
         # float sweep)
         phase_sass(sys.argv[2] if len(sys.argv) > 2 else "sweep_kernel")
+        return 0
+    if sys.argv[1:] == ["--bench-cmds"]:
+        # phases 0-1, then the benchmark commands alone
+        phase_bench_cmds()
         return 0
     chains = read_chains(Q100)
     if sys.argv[1:] == ["--stage1"]:
@@ -1342,7 +1505,8 @@ def main() -> int:
                             "query": (want_query, query_s),
                             "ten": want_ten, "rev": rev})
     phase_multiprocess(big)
-    print(f"[10] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    phase_bench_cmds()
+    print(f"[11] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(card)
     # library_ms: no single PyTorch call computes SW, the walk or LDDT;

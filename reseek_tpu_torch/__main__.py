@@ -19,6 +19,10 @@ torch's RANK, MASTER_ADDR and MASTER_PORT; only rank 0 writes ``-o`` and
 rank's finished rows when their fingerprint matches the run.  The
 argument helpers, the parameter handling and the routing follow
 reseek_tpu.cli's ``search`` command.
+
+The other commands (the SCOP40 benchmark, the calibrations and their
+file tools, prefilter-mu and postmufilter) are in cli.py:
+``python -m reseek_tpu_torch <command> --help``.
 """
 
 from __future__ import annotations
@@ -30,26 +34,10 @@ import sys
 import tempfile
 from typing import List, Optional
 
+from reseek_tpu_torch.cli import (add_commands, add_engine_args, add_mode_args,
+                                  mode_from_args)
+
 MULTI_PROCESS_FLAGS = ("procid", "coord", "scratch", "resume")
-
-
-def _add_mode_args(p: argparse.ArgumentParser) -> None:
-    g = p.add_mutually_exclusive_group()
-    g.add_argument("--fast", action="store_true")
-    g.add_argument("--sensitive", action="store_true")
-    g.add_argument("--verysensitive", action="store_true")
-
-
-def _mode_from_args(args, default: Optional[str] = None) -> str:
-    if args.fast:
-        return "fast"
-    if args.sensitive:
-        return "sensitive"
-    if args.verysensitive:
-        return "verysensitive"
-    if default is None:
-        raise SystemExit("Must set --fast, --sensitive or --verysensitive")
-    return default
 
 
 def _read_chains_or_artifact(path: str, params):
@@ -70,7 +58,7 @@ def cmd_search(args) -> int:
     from reseek_tpu_torch.search.host import SearchOptions
     from reseek_tpu_torch.utils.logger import open_log
 
-    mode = _mode_from_args(args)
+    mode = mode_from_args(args)
     distributed = args.nprocs > 1
     if distributed and not (args.db and mode == "fast"):
         print("reseek_tpu_torch search: --nprocs > 1 runs the "
@@ -190,7 +178,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("search", help="all-vs-all, query-vs-DB or -fast "
                                       "structure search")
     p.add_argument("input")
-    _add_mode_args(p)
+    add_mode_args(p)
     p.add_argument("--output", "-o")
     p.add_argument("--columns", default="std")
     p.add_argument("--evalue", type=float)
@@ -209,12 +197,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--threads", type=int, default=0,
                    help="host threads reported in the run stats")
     p.add_argument("--log", help="write a log file (reference -log)")
-    p.add_argument("--engine", default="auto",
-                   choices=["auto", "device", "host"],
-                   help="device engine (auto), or the host per-pair "
-                        "engine")
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="torch device of the device engine")
+    add_engine_args(p)
     p.add_argument("--params", help="name<TAB>value parameter file")
     p.add_argument("--paramstr", help="AA:0.4_Conf:0.2_... parameter string")
     p.add_argument("--aln", help="write pretty alignment blocks")
@@ -244,6 +227,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reuse a rank's finished row file when its "
                         "fingerprint matches this run")
     p.set_defaults(fn=cmd_search)
+    add_commands(sub)
     return ap
 
 

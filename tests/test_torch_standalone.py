@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+from reseek_tpu import cli as tpu_cli
 from reseek_tpu.align.output import parse_columns
 from reseek_tpu.constants import DSSParams
 from reseek_tpu.io.reader import read_chains
@@ -17,6 +18,10 @@ from reseek_tpu.search.driver import SearchOptions
 
 ROOT = Path(__file__).resolve().parent.parent
 Q100 = str(ROOT / "tests" / "golden" / "q100.cal")
+SEPQ = str(ROOT / "tests" / "golden" / "sepq_set.cal")
+LOOKUP = str(ROOT / "tests" / "golden" / "sepq_set.lookup")
+# four a.1.11.1 chains, two a.1.24.1, two singletons: true and false pairs
+SEPQ8 = [0, 9, 10, 11, 12, 13, 26, 27]
 COLUMNS = "query+target+qlo+qhi+tlo+thi+evalue+cigar"
 BLOCKED = ("reseek_tpu", "jax")
 
@@ -80,6 +85,15 @@ rc = rc or main(["search", {q8!r}, "--sensitive", "--db", {q8!r}, "-o",
                  {db_out!r}] + common)
 rc = rc or main(["search", {q8!r}, "--fast", "--db", {q8!r}, "-o",
                  {fast_out!r}] + common)
+import contextlib
+sepq = read_chains({sepq!r})
+write_cal([sepq[i] for i in {sepq_idx!r}], {s8!r})
+for key, argv in (("bench_out", ["scop40bench", {s8!r}, "--lookup",
+                                 {lookup!r}]),
+                  ("cal2_out", ["calibrate2", {s8!r}, "--benchlevel",
+                                "sf"])):
+    with open({paths!r}[key], "w") as f, contextlib.redirect_stdout(f):
+        rc = rc or main(argv + ["--engine", "host"])
 loaded = [k for k in sys.modules if k == "reseek_tpu"
           or k.startswith("reseek_tpu.")]
 assert not loaded, loaded
@@ -88,14 +102,18 @@ sys.exit(rc)
 """
 
 
-def test_cli_runs_with_reseek_tpu_and_jax_blocked(tmp_path):
+def test_cli_runs_with_reseek_tpu_and_jax_blocked(tmp_path, capsys):
     """Every module of the port imports, and the CLI's self-search, --db
-    and --fast --db run on the CPU, with jax and reseek_tpu refused; the
-    outputs equal reseek_tpu's host engine."""
+    and --fast --db, scop40bench and calibrate2 run on the CPU, with jax
+    and reseek_tpu refused; the outputs equal reseek_tpu's host engine."""
     paths = {k: str(tmp_path / f"{k}.tsv")
-             for k in ("self_out", "db_out", "fast_out")}
+             for k in ("self_out", "db_out", "fast_out", "bench_out",
+                       "cal2_out")}
     q8 = str(tmp_path / "q8.cal")
-    code = _BLOCKED_RUN.format(q100=Q100, q8=q8, columns=COLUMNS, **paths)
+    s8 = str(tmp_path / "s8.cal")
+    code = _BLOCKED_RUN.format(q100=Q100, q8=q8, columns=COLUMNS,
+                               sepq=SEPQ, sepq_idx=SEPQ8, s8=s8,
+                               lookup=LOOKUP, paths=paths, **paths)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                           env=env, capture_output=True, text=True,
@@ -114,3 +132,11 @@ def test_cli_runs_with_reseek_tpu_and_jax_blocked(tmp_path):
            engine="host")
         got = Path(paths[key]).read_text()
         assert got == want.getvalue() and got, key
+    for key, argv in (("bench_out", ["scop40bench", s8, "--lookup",
+                                     LOOKUP]),
+                      ("cal2_out", ["calibrate2", s8, "--benchlevel",
+                                    "sf"])):
+        capsys.readouterr()
+        assert tpu_cli.main(argv + ["--engine", "host"]) == 0
+        want = capsys.readouterr().out
+        assert Path(paths[key]).read_text() == want and want, key
