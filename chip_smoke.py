@@ -10,6 +10,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --sweep     # phases 0-1, the float sweep alone
     python3 chip_smoke.py --sass [NAME]   # phases 0-1, kernels' SASS opcodes
     python3 chip_smoke.py --bench-cmds    # phases 0-1, then phase 10
+    python3 chip_smoke.py --io-cmds       # phases 0-1, then phase 11
 
 Phases, in order; any failure exits non-zero and prints no result:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -74,10 +75,18 @@ Phases, in order; any failure exits non-zero and prints no result:
      2,048-chain labeled replica (the 101 chains below fast mode's MKF
      length, 0.25 A noise, seed 17, labels <dom>_r<k>/<scopid> and their
      lookup): every chain has its self hit, the stage-1/3 kernels
-     launch, the SEPQs lie in [0, 1]; wall, pairs/s, stages, peak memory.
+     launch, the SEPQs lie in [0, 1]; wall, pairs/s, stages, peak memory;
+ 11. the structure I/O, format and pair-alignment commands through the
+     CLI, in-process (phase_io_cmds: convert's round trips and .rsdx
+     index, the device searches of the .rsdx and the .bca against the
+     host engine, the reference spelling, alignpair, test-xdrop, the
+     Foldseek DB round trip, align-bags / alignselfrev / tracealn), and
+     the graft entry points of reseek_tpu_torch/graft_entry.py: entry()
+     against its plain version and dryrun_multichip over the mesh.
 Each kernel must have been launched by the run of the phase that KERNELS
 names for it (counts set to 0 just before that run, read just after);
-the query, -fast and mesh runs must launch every stage-1/3 kernel too.
+the query, -fast, mesh and phase 11's searches must launch every
+stage-1/3 kernel too, and entry()'s fn the score-only kernel.
 The last two lines are a JSON object of per-kernel results (times, the
 bound the card could reach at the timed shape and what binds it) and
 {"ok": true, "device": {...}}.  Imports neither JAX nor reseek_tpu: the
@@ -123,6 +132,8 @@ QUERY_CHUNK = 512
 RANK_TIMEOUT = 400        # seconds for a run of the CLI's rank processes
 FIVE = [18, 21, 22, 26, 40]
 TEN = list(range(10))
+# the 16 q100 chains (245-1,231 residues) of phase 11's pair alignments
+IO_SUBSET = [18, 21, 22, 26, 40, 46, 50, 64, 69, 72, 94, 95, 96, 97, 98, 99]
 # kernel -> (CUDA source, the TPU kernel or JAX scan it replaces, the run
 # that must launch it)
 KERNELS = {
@@ -1288,12 +1299,12 @@ def phase_multiprocess(db_chains) -> None:
 
 
 def run_cmd(argv) -> tuple:
-    """One command of the port's CLI, in-process: (stdout, stderr, the
-    parsed arguments, on which a search-driven command leaves its driver
-    as ``drv``)."""
+    """One command of the port's CLI, in-process, in either spelling:
+    (stdout, stderr, the parsed arguments, on which a search-driven
+    command leaves its driver as ``drv``)."""
     import contextlib
-    from reseek_tpu_torch.__main__ import build_parser
-    args = build_parser().parse_args(argv)
+    from reseek_tpu_torch.__main__ import _reference_style, build_parser
+    args = build_parser().parse_args(_reference_style(list(argv)))
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = args.fn(args)
@@ -1427,6 +1438,189 @@ def phase_bench_cmds() -> None:
               f"launches {launched.counts}")
 
 
+def _digest(data: bytes) -> str:
+    import hashlib
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
+def phase_io_cmds(want_cal=None) -> dict:
+    """Phase 11: the structure I/O, format and pair-alignment commands
+    through the port's CLI, in-process, and the graft entry points
+    (reseek_tpu_torch/graft_entry.py) on the card.  ``want_cal``: phase
+    3's device TSV of q100.cal, when it ran, to count the rows that the
+    .bca's integer coordinates change.  Returns the launch counts of the
+    phase's device searches (both, summed).
+
+    The gates: convert's .cal and .bca -> .cal byte-equal to q100.cal;
+    the sensitive device search of the .rsdx that ``convert --index``
+    builds from the .bca, and of the .bca itself, byte-equal to the host
+    engine's search of the .bca (a .bca holds integer coordinates, so its
+    chains are not bit-equal to the .cal's text), each launching the
+    stage-1/3 kernels; the same search in the reference binary's spelling
+    byte-equal; a chain aligned with itself spanning the chain, its
+    superposed PDB within 1e-3 A of the input; test-xdrop equal to the
+    reference binary's log; create-foldseekdb -> convert-foldseekdb back
+    to q100.cal byte for byte; entry()'s exact score bit-equal to its
+    plain version, with sw_score launched; dryrun_multichip over every
+    card (two positions of cuda:0 on one).  align-bags, alignselfrev and
+    tracealn on 16 chains must exit 0: their oracle is the CPU tests
+    (tests/test_torch_cli_align.py holds them byte-equal to reseek_tpu),
+    so here they print a digest and a wall."""
+    from reseek_tpu_torch import graft_entry
+    from reseek_tpu_torch.constants import DSSParams
+    from reseek_tpu_torch.io.artifact import load_artifact
+    from reseek_tpu_torch.io.cal import write_cal
+    from reseek_tpu_torch.io.reader import read_chains
+    from reseek_tpu_torch.ops.sw_align import sw_score_profiles_ref
+    want_q100 = open(Q100, "rb").read()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        t0 = time.perf_counter()
+        run_cmd(["convert", Q100, "--bca", path("q100.bca"), "--cal",
+                 path("q100.cal")])
+        run_cmd(["convert", path("q100.bca"), "--cal", path("back.cal"),
+                 "--index", path("q100.rsdx"), "--index-modes", MODE])
+        for name in ("q100.cal", "back.cal"):
+            if open(path(name), "rb").read() != want_q100:
+                fail(f"convert: {name} differs from q100.cal")
+        print(f"[11] convert q100.cal -> .bca and .cal, .bca -> .cal and "
+              f".rsdx ({MODE}): both .cal byte-equal to q100.cal; "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        search = ["--sensitive", "--columns", COLUMNS]
+        t0 = time.perf_counter()
+        run_cmd(["search", path("q100.bca"), *search, "-o",
+                 path("host.tsv"), "--engine", "host"])
+        host_s = time.perf_counter() - t0
+        want = open(path("host.tsv")).read()
+        params = DSSParams.create(MODE)
+        for src, load in (("q100.rsdx", lambda p: load_artifact(
+                              p, params, mode=MODE)),
+                          ("q100.bca", read_chains)):
+            t0 = time.perf_counter()
+            load(path(src))
+            load_s = time.perf_counter() - t0
+            with Launches() as launched:
+                t0 = time.perf_counter()
+                _, _, args = run_cmd(["search", path(src), *search, "-o",
+                                      path(src + ".tsv"), "--engine",
+                                      "device", "--device", DEVICE])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            if open(path(src + ".tsv")).read() != want or not want:
+                fail(f"search {src} on the device engine differs from the "
+                     "host engine's search of q100.bca")
+            launched.require(SEARCH_KERNELS, f"search {src}")
+            for k, n in launched.counts.items():
+                counts[k] = counts.get(k, 0) + n
+            print(f"[11] search {src} --sensitive --engine device: "
+                  f"{len(want.splitlines())} rows byte-equal to the host "
+                  f"engine's of q100.bca ({host_s:.2f} s); {secs:.2f} s; "
+                  f"load {load_s:.3f} s, encode "
+                  f"{args.drv.device_stats['encode_s']:.3f} s; launches "
+                  f"{launched.counts}")
+        if want_cal is not None:
+            diff = len(set(want_cal.splitlines()) ^ set(want.splitlines()))
+            print(f"[11] q100.bca's rows against q100.cal's (phase 3): "
+                  f"{diff} rows differ in one of the two")
+        run_cmd(["-search", path("q100.rsdx"), "-sensitive", "-columns",
+                 COLUMNS, "-output", path("ref.tsv"), "-engine", "device",
+                 "-device", DEVICE])
+        if open(path("ref.tsv")).read() != want:
+            fail("-search in the reference spelling differs")
+        print("[11] -search q100.rsdx -sensitive ... (reference spelling): "
+              "byte-equal")
+
+        t0 = time.perf_counter()
+        run_cmd(["chains2pdbs", Q100, "--outdir", path("pdbs")])
+        chain = read_chains(Q100)[FIVE[0]]
+        pdb = path(os.path.join("pdbs", chain.label.replace("/", "_")
+                                + ".pdb"))
+        out, _, _ = run_cmd(["alignpair", pdb, "--input2", pdb, "--output",
+                             path("super.pdb"), "--aln", path("self.aln")])
+        n = str(len(chain))
+        if out.split("\t")[2:6] != ["1", n, "1", n]:
+            fail(f"alignpair of {chain.label} with itself: {out.strip()}")
+        dev = np.abs(read_chains(path("super.pdb"))[0].coords
+                     - read_chains(pdb)[0].coords).max()
+        if not dev < 1e-3:
+            fail(f"alignpair: the superposed PDB is {dev} A off the input")
+        print(f"[11] chains2pdbs, alignpair of {chain.label} with itself: "
+              f"1-{n} both sides, superposed within {dev:.2e} A; "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        run_cmd(["test-xdrop", "--log", path("xdrop.log")])
+        with open(path("xdrop.log")) as f:
+            body = "".join(ln for ln in f if not ln.startswith((
+                "Finished", "Elapsed", "Max memory")))
+        with open(os.path.join(ROOT, "tests", "golden",
+                               "test_xdrop.txt")) as f:
+            if body.rstrip("\n") != f.read().rstrip("\n"):
+                fail("test-xdrop differs from the reference binary's log")
+        print("[11] test-xdrop: equal to tests/golden/test_xdrop.txt")
+
+        t0 = time.perf_counter()
+        run_cmd(["convert", Q100, "--feature-fasta", path("q100.3di.fa")])
+        run_cmd(["create-foldseekdb", Q100, "--3di", path("q100.3di.fa"),
+                 "--output", path("fsdb")])
+        run_cmd(["convert-foldseekdb", path("fsdb"), "--cal",
+                 path("fsdb.cal"), "--3di", path("fsdb.3di.fa")])
+        if open(path("fsdb.cal"), "rb").read() != want_q100:
+            fail("create-foldseekdb -> convert-foldseekdb: the .cal "
+                 "differs from q100.cal")
+        if (open(path("fsdb.3di.fa"), "rb").read()
+                != open(path("q100.3di.fa"), "rb").read()):
+            fail("convert-foldseekdb: the 3Di FASTA differs")
+        print(f"[11] create-foldseekdb -> convert-foldseekdb: .cal and 3Di "
+              f"byte-equal to the source; {time.perf_counter() - t0:.2f} s")
+
+        chains = read_chains(Q100)
+        with open(path("q16.cal"), "w") as f:
+            write_cal([chains[i] for i in IO_SUBSET], f)
+        for argv in (["align-bags", path("q16.cal"), "--output",
+                      path("bags.tsv")],
+                     ["alignselfrev", path("q16.cal"), "--output",
+                      path("selfrev.tsv")],
+                     ["tracealn", path("q16.cal"), "--db", path("q16.cal"),
+                      "--log", path("trace.log")]):
+            t0 = time.perf_counter()
+            run_cmd(argv)
+            secs = time.perf_counter() - t0
+            data = open(argv[-1], "rb").read()
+            if argv[0] == "tracealn":
+                data = b"".join(ln for ln in data.splitlines(True)
+                                if not ln.startswith((b"Finished",
+                                                      b"Elapsed")))
+            lines = data.count(b"\n")
+            print(f"[11] {argv[0]} on 16 chains: {secs:.2f} s, {lines} "
+                  f"lines, sha256 {_digest(data)}")
+
+    fn, args = graft_entry.entry(device=DEVICE)
+    with Launches() as launched:
+        got = fn(*args)
+        torch.cuda.synchronize()
+    launched.require(["sw_score"], "graft_entry.entry's fn")
+    prof_a, prof_b, table = args
+    pairs = torch.arange(prof_a.shape[0], device=prof_a.device)
+    ref = sw_score_profiles_ref(prof_a, prof_b, pairs, pairs, table,
+                                prof_a.shape[2], prof_a.shape[2],
+                                params.gap_open, params.gap_ext)
+    if not torch.equal(got, ref):
+        fail(f"graft_entry.entry: {got.tolist()} != plain {ref.tolist()}")
+    print(f"[11] graft_entry.entry on {DEVICE}: {got.tolist()} bit-equal "
+          f"to the plain version")
+    n = max(2, torch.cuda.device_count())
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(n, device=DEVICE)
+    print(f"[11] graft_entry.dryrun_multichip({n}) over "
+          f"{graft_entry.mesh_of(n, DEVICE)}: passed, "
+          f"{time.perf_counter() - t0:.2f} s")
+    return counts
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -1463,6 +1657,10 @@ def main() -> int:
     if sys.argv[1:] == ["--bench-cmds"]:
         # phases 0-1, then the benchmark commands alone
         phase_bench_cmds()
+        return 0
+    if sys.argv[1:] == ["--io-cmds"]:
+        # phases 0-1, then the I/O, format and alignment commands alone
+        phase_io_cmds()
         return 0
     chains = read_chains(Q100)
     if sys.argv[1:] == ["--stage1"]:
@@ -1506,7 +1704,8 @@ def main() -> int:
                             "ten": want_ten, "rev": rev})
     phase_multiprocess(big)
     phase_bench_cmds()
-    print(f"[11] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    launches["io_cmds"] = phase_io_cmds(want_self)
+    print(f"[12] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(card)
     # library_ms: no single PyTorch call computes SW, the walk or LDDT;
@@ -1518,6 +1717,7 @@ def main() -> int:
          "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"],
          "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"],
          "library_ms": None, "shape": res[k]["shape"],
+         "io_cmds_launches": launches["io_cmds"][k],
          **extra_times(res[k])}
         for k, (src, rep, run) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {

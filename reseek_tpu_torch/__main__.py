@@ -21,13 +21,19 @@ argument helpers, the parameter handling and the routing follow
 reseek_tpu.cli's ``search`` command.
 
 The other commands (the SCOP40 benchmark, the calibrations and their
-file tools, prefilter-mu and postmufilter) are in cli.py:
-``python -m reseek_tpu_torch <command> --help``.
+file tools, prefilter-mu and postmufilter, the structure I/O and format
+commands, the Foldseek and MMseqs files, the pair alignments) are in
+cli.py: ``python -m reseek_tpu_torch <command> --help``.
+
+The reference binary's spelling is accepted too, as reseek_tpu accepts
+it: ``python -m reseek_tpu_torch -search db.cal -sensitive -output
+hits.tsv`` runs ``search db.cal --sensitive --output hits.tsv``.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -126,6 +132,7 @@ def cmd_search(args) -> int:
         else:
             drv = driver.self_search(chains, params, options, out, **kw)
         drv.run_stats(n_threads=max(1, args.threads))
+        args.drv = drv   # for a caller that runs the command in-process
     finally:
         if args.output:
             out.close()
@@ -231,8 +238,74 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+# reseek_tpu's command names: the first argument -<name> (or -<name_with_
+# underscores>) asks for the reference spelling of the command line
+REFERENCE_COMMANDS = frozenset({
+    "convert", "search", "alignpair", "pdb2ss", "pdb2mega", "scop40bench",
+    "prefilter-mu", "distmx", "shuffle", "split", "convert2mu", "gunzip",
+    "cif2pdb", "prepare-query", "lddt-msa", "daliscore-msa",
+    "train-features", "fit-gumbel", "calibrate", "chains2pdbs",
+    "getchains", "bca-stats", "align-bags", "msta-score", "msta-scores",
+    "float-feature-bins", "sscluster", "mmseqs-index-dump",
+    "create-foldseekdb", "convert-foldseekdb", "alignselfrev",
+    "mu-mapping", "lddt-msa-foldmason", "lddt-msas", "daliscore-msas",
+    "gunzip-lines", "musubstmx", "postmufilter", "scop40bit",
+    "scop40bit2tsv", "scop40bit-roc", "scop40bench-tsv", "daliscore-tsv",
+    "align-bag", "tracealn", "feature-stats", "test-gumbel",
+    "scop40tsv2bit", "lddt-bench", "msta-lddtmuw", "msta-lddtmuw1",
+    "mudex", "mukmerfilter", "scan-files", "test-xdrop", "msa2cmp",
+    "binner", "calibrate2", "daliscore-msas2"})
+
+
+def _reference_style(argv: List[str]) -> List[str]:
+    """Accept the reference binary's flag spelling (src/myutils.cpp option
+    parser): `reseek -search db.bca -sensitive -output hits.tsv` becomes
+    `search db.bca --sensitive --output hits.tsv`.  Triggered only when
+    the first argument is -<command> of a command this CLI registers;
+    single-dash long options are rewritten to GNU style, underscores to
+    dashes.  A command of REFERENCE_COMMANDS that the port lacks passes
+    through unrewritten, for argparse to reject."""
+    if not argv or not argv[0].startswith("-"):
+        return argv
+    head = argv[0].lstrip("-").replace("_", "-")
+    if head not in REFERENCE_COMMANDS:
+        return argv
+    known = _known_options(head)
+    if known is None:
+        return argv
+    # only rewrite tokens naming a KNOWN option of this subcommand, so
+    # option VALUES that begin with '-' (e.g. `-label -foo`, `-evalue -.5`)
+    # pass through untouched
+    out = [head]
+    for a in argv[1:]:
+        name = a[1:].replace("_", "-") if a.startswith("-") else ""
+        if (a.startswith("-") and not a.startswith("--") and len(a) > 2
+                and name in known):
+            out.append("--" + name)
+        else:
+            out.append(a)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _known_options(head: str) -> Optional[frozenset]:
+    """Long-option names (without --) of subcommand ``head``, None when
+    the parser has no such subcommand.  Cached: the argparse tree is only
+    built once per process even when main() is called repeatedly (e.g.
+    from tests)."""
+    ap = build_parser()
+    for act in ap._subparsers._group_actions:  # type: ignore[union-attr]
+        choices = getattr(act, "choices", None)
+        if choices and head in choices:
+            return frozenset(s[2:] for a in choices[head]._actions
+                             for s in a.option_strings if s.startswith("--"))
+    return None
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
+    if argv is None:
+        argv = sys.argv[1:]
+    args = build_parser().parse_args(_reference_style(list(argv)))
     return args.fn(args)
 
 

@@ -94,6 +94,14 @@ for key, argv in (("bench_out", ["scop40bench", {s8!r}, "--lookup",
                                 "sf"])):
     with open({paths!r}[key], "w") as f, contextlib.redirect_stdout(f):
         rc = rc or main(argv + ["--engine", "host"])
+rc = rc or main(["convert", {q8!r}, "--bca", {q8_bca!r}])
+rc = rc or main(["convert", {q8_bca!r}, "--index", {rsdx!r},
+                 "--index-modes", "sensitive"])
+rc = rc or main(["search", {rsdx!r}, "--sensitive", "-o", {rsdx_out!r}]
+                + common)
+with open({pair_out!r}, "w") as f, contextlib.redirect_stdout(f):
+    rc = rc or main(["alignpair", {q8!r}, "--input2", {s8!r}, "--aln",
+                     {pair_aln!r}])
 loaded = [k for k in sys.modules if k == "reseek_tpu"
           or k.startswith("reseek_tpu.")]
 assert not loaded, loaded
@@ -104,16 +112,20 @@ sys.exit(rc)
 
 def test_cli_runs_with_reseek_tpu_and_jax_blocked(tmp_path, capsys):
     """Every module of the port imports, and the CLI's self-search, --db
-    and --fast --db, scop40bench and calibrate2 run on the CPU, with jax
-    and reseek_tpu refused; the outputs equal reseek_tpu's host engine."""
+    and --fast --db, scop40bench, calibrate2, convert --index and a
+    search of its .rsdx, and alignpair run on the CPU, with jax and
+    reseek_tpu refused; the outputs equal reseek_tpu's."""
     paths = {k: str(tmp_path / f"{k}.tsv")
              for k in ("self_out", "db_out", "fast_out", "bench_out",
-                       "cal2_out")}
+                       "cal2_out", "rsdx_out", "pair_out", "pair_aln")}
     q8 = str(tmp_path / "q8.cal")
     s8 = str(tmp_path / "s8.cal")
+    q8_bca = str(tmp_path / "q8.bca")
+    rsdx = str(tmp_path / "q8.rsdx")
     code = _BLOCKED_RUN.format(q100=Q100, q8=q8, columns=COLUMNS,
                                sepq=SEPQ, sepq_idx=SEPQ8, s8=s8,
-                               lookup=LOOKUP, paths=paths, **paths)
+                               lookup=LOOKUP, paths=paths, q8_bca=q8_bca,
+                               rsdx=rsdx, **paths)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                           env=env, capture_output=True, text=True,
@@ -140,3 +152,15 @@ def test_cli_runs_with_reseek_tpu_and_jax_blocked(tmp_path, capsys):
         assert tpu_cli.main(argv + ["--engine", "host"]) == 0
         want = capsys.readouterr().out
         assert Path(paths[key]).read_text() == want and want, key
+    # the .rsdx holds the .bca's chains: its rows are the .bca's
+    want = io.StringIO()
+    tpu_driver.self_search(read_chains(q8_bca), DSSParams.create(
+        "sensitive"), SearchOptions(columns=parse_columns(COLUMNS),
+                                    mode="sensitive"), want, engine="host")
+    assert Path(paths["rsdx_out"]).read_text() == want.getvalue()
+    aln = tmp_path / "tpu.aln"
+    capsys.readouterr()
+    assert tpu_cli.main(["alignpair", q8, "--input2", s8, "--aln",
+                         str(aln)]) == 0
+    assert Path(paths["pair_out"]).read_text() == capsys.readouterr().out
+    assert Path(paths["pair_aln"]).read_text() == aln.read_text()
