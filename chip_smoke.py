@@ -11,6 +11,7 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --sass [NAME]   # phases 0-1, kernels' SASS opcodes
     python3 chip_smoke.py --bench-cmds    # phases 0-1, then phase 10
     python3 chip_smoke.py --io-cmds       # phases 0-1, then phase 11
+    python3 chip_smoke.py --msa-cmds      # phases 0-1, then phase 12
 
 Phases, in order; any failure exits non-zero and prints no result:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -82,11 +83,24 @@ Phases, in order; any failure exits non-zero and prints no result:
      host engine, the reference spelling, alignpair, test-xdrop, the
      Foldseek DB round trip, align-bags / alignselfrev / tracealn), and
      the graft entry points of reseek_tpu_torch/graft_entry.py: entry()
-     against its plain version and dryrun_multichip over the mesh.
+     against its plain version and dryrun_multichip over the mesh;
+ 12. the MSA scoring, training and diagnostic commands through the CLI,
+     in-process (phase_msa_cmds: each output against the reference
+     binary's in tests/golden where there is one, else a digest; the
+     reference spelling; mukmerfilter "Obsolete"), then the legacy
+     square-bucket engine (phase_legacy, reseek_tpu_torch/search/
+     batched.py) on the q100 chains: its kernels against their plain
+     versions at buckets 96, 384 and 1,536, its self-reversal scores
+     bit-equal to the host's, batched_self_search equal pair for pair to
+     the host PairAligner, the five stage kernels launched and the float
+     sweep not; then timed on the 1,024-chain replica, every chain below
+     the MKF length with its self hit.
 Each kernel must have been launched by the run of the phase that KERNELS
 names for it (counts set to 0 just before that run, read just after);
 the query, -fast, mesh and phase 11's searches must launch every
-stage-1/3 kernel too, and entry()'s fn the score-only kernel.
+stage-1/3 kernel too, entry()'s fn the score-only kernel, and phase 12's
+legacy engine the kernels of its four stages (mu_sweep, sw_score,
+sw_align, walk_traceback, lddt).
 The last two lines are a JSON object of per-kernel results (times, the
 bound the card could reach at the timed shape and what binds it) and
 {"ok": true, "device": {...}}.  Imports neither JAX nor reseek_tpu: the
@@ -1621,6 +1635,391 @@ def phase_io_cmds(want_cal=None) -> dict:
     return counts
 
 
+MSTA = os.path.join(ROOT, "tests", "golden", "msta.afa")
+MSTA_SET = os.path.join(ROOT, "tests", "golden", "msta_set.cal")
+# the buckets at which phase 12 holds the legacy engine's kernels against
+# their plain versions
+LEGACY_BUCKETS = (96, 384, 1536)
+
+
+def _golden(name: str) -> str:
+    with open(os.path.join(ROOT, "tests", "golden", name)) as f:
+        return f.read()
+
+
+def phase_msa_cmds() -> None:
+    """Phase 12, first part: the 22 MSA scoring, training and diagnostic
+    commands through the port's CLI, in-process, on the in-repo inputs.
+    Each output for which the reference binary's is in tests/golden must
+    equal it byte for byte (msta-scores and daliscore-msas2 with their
+    test directories' paths rewritten, msta-lddtmuw1 up to its trailing
+    newlines); mudex must print the reference's occupancy lines and
+    self-score quartiles; mukmerfilter must end in "Obsolete"; the
+    reference spelling of lddt-msa and msta-lddtmuw must write the same
+    bytes.  The others print a digest: their oracle is the CPU tests
+    (tests/test_torch_cli_msa.py, tests/test_torch_cli_train.py hold them
+    byte-equal to reseek_tpu)."""
+    import shutil
+    from reseek_tpu_torch.io.cal import write_cal
+    from reseek_tpu_torch.io.reader import read_chains
+    score = ["--input", MSTA_SET]
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        for sub, name in (("one", "fam1"), ("td1", "msta.afa"),
+                          ("td2", "msta.afa")):
+            os.makedirs(path(sub))
+            shutil.copy(MSTA, os.path.join(path(sub), name))
+        with open(path("accs.txt"), "w") as f:
+            f.write("fam1\nmissing_fam\n")
+        with open(path("accs2.txt"), "w") as f:
+            f.write("msta.afa\n")
+        recs = [r.partition("\n") for r in open(MSTA).read().split(">")[1:]]
+        rows = [(lab.strip(), seq.replace("\n", "")) for lab, _, seq in recs]
+        with open(path("dali.tsv"), "w") as f, \
+                open(path("pairs.fa"), "w") as g:
+            for i in range(len(rows)):
+                for j in range(i + 1, len(rows)):
+                    f.write("\t".join([rows[i][0], rows[j][0], "10.0", "0",
+                                       "0", "0", "0", rows[i][1],
+                                       rows[j][1]]) + "\n")
+                    g.write(f">{rows[i][0]}\n{rows[i][1]}\n"
+                            f">{rows[j][0]}\n{rows[j][1]}\n")
+        with open(path("q16.cal"), "w") as f:
+            write_cal([read_chains(Q100)[i] for i in IO_SUBSET], f)
+        one = path("one") + "/"
+        dirs = {"/tmp/msta_dir/": one, "/tmp/td1/": path("td1") + "/",
+                "/tmp/td2/": path("td2") + "/"}
+
+        def golden(name):
+            text = _golden(name)
+            for a, b in dirs.items():
+                text = text.replace(a, b)
+            return text
+
+        # (argv, {output file: golden name, or None for a digest},
+        # stdout's golden text or None)
+        g = os.path.join(ROOT, "tests", "golden")
+        cmds = [
+            (["lddt-msa", MSTA, *score, "--output", path("l.tsv")],
+             {"l.tsv": "lddt_msa.tsv"}, None),
+            (["daliscore-msa", MSTA, *score, "--output", path("d.tsv")],
+             {"d.tsv": "daliscore_msa.tsv"}, None),
+            (["lddt-msa-foldmason", MSTA, *score, "--output",
+              path("fm.tsv")], {"fm.tsv": "lddt_msa_foldmason.tsv"}, None),
+            (["lddt-msas", path("accs.txt"), *score, "--testdir", one,
+              "--output", path("ls.tsv")], {"ls.tsv": None}, None),
+            (["daliscore-msas", path("accs.txt"), *score, "--testdir", one,
+              "--output", path("ds.tsv")], {"ds.tsv": None}, None),
+            (["daliscore-msas2", path("accs2.txt"), *score, "--testdir",
+              path("td1"), "--testdir2", path("td2"), "--output",
+              path("ds2.tsv")], {"ds2.tsv": "daliscore_msas2.tsv"}, None),
+            (["daliscore-tsv", path("dali.tsv"), *score, "--output",
+              path("dt.tsv")], {"dt.tsv": None}, None),
+            (["lddt-bench", MSTA, *score], {}, "LDDT=0.7564 MSA=msta\n"),
+            (["msta-score", MSTA, *score, "--output", path("ms.tsv")],
+             {"ms.tsv": "msta_score.tsv"}, None),
+            (["msta-scores", path("accs.txt"), *score, "--testdir", one,
+              "--output", path("mss.tsv")], {"mss.tsv": "msta_scores.tsv"},
+             None),
+            (["msta-lddtmuw", MSTA, *score, "--label", "m0",
+              "--lddtmuw-jalview", path("muw.jv"), "--lddtmuw-pymol",
+              path("muw.pml")], {"muw.jv": "msta_lddtmuw.jalview",
+                                 "muw.pml": "msta_lddtmuw_m0.pml"}, None),
+            (["msta-lddtmuw1", MSTA, *score, "--label", "m0", "--output",
+              path("muw1.txt")], {"muw1.txt": "msta_lddtmuw1_m0.txt"},
+             None),
+            (["msa2cmp", MSTA, *score, "--output", path("cmp.tsv")],
+             {"cmp.tsv": "msa2cmp.tsv"}, None),
+            (["musubstmx", "--output", path("mu.c")], {"mu.c": None}, None),
+            (["mu-mapping", "--output", path("mumap.tsv")],
+             {"mumap.tsv": None}, None),
+            (["float-feature-bins", os.path.join(g, "ffb_pairs.fa"),
+              "--train-cal", SEPQ_CAL, "--feature", "NENDist",
+              "--alpha-size", "16", "--output", path("ffb.txt")],
+             {"ffb.txt": None}, None),
+            (["sscluster", path("q16.cal"), "-k", "8", "-n", "2000",
+              "--output", path("ssc.txt")], {"ssc.txt": None}, None),
+            (["train-features", MSTA_SET, "--alns", path("pairs.fa"),
+              "--output", path("lo.tsv")], {"lo.tsv": None}, None),
+            (["feature-stats"], {}, _golden("feature_stats.txt")),
+            (["mudex", os.path.join(g, "q100.mu.fa"), "--log",
+              path("mudex.log")], {}, (
+                  "Validate OK\n"
+                  "Max letters [1] = 3796 (14.0%)\n"
+                  "Max letters [2] = 15285 (56.4%)\n"
+                  "Max letters [3] = 6204 (22.9%)\n"
+                  "Max letters [4] = 1424 (5.3%)\n"
+                  "Max letters [5] = 409 (1.5%)\n")),
+            (["binner", os.path.join(g, "binner_vals.tsv"), "--fieldnr", "2",
+              "--bins", "8", "--output", path("h.tsv"), "--accum",
+              path("a.tsv"), "--accumrev", path("r.tsv")],
+             {"h.tsv": "binner_hist.tsv", "a.tsv": "binner_accum.tsv",
+              "r.tsv": "binner_accumrev.tsv"}, None),
+        ]
+        for argv, files, stdout in cmds:
+            t0 = time.perf_counter()
+            out, _, _ = run_cmd(argv)
+            secs = time.perf_counter() - t0
+            if stdout is not None and out != stdout:
+                fail(f"{argv[0]}: stdout differs from the reference's:\n"
+                     f"{out}")
+            notes = ["stdout equal to the reference's"] if stdout else []
+            for name, gold in files.items():
+                got = open(path(name)).read()
+                if not got:
+                    fail(f"{argv[0]}: {name} is empty")
+                if gold is None:
+                    if name == "ffb.txt":
+                        got = "".join(
+                            ln + "\n" for ln in got.splitlines()
+                            if any(k in ln for k in ("ALPHA_SIZE", "BIN_T",
+                                                     "expected")))
+                        if got != _golden("ffb_nendist16.txt"):
+                            fail("float-feature-bins: its lines are not "
+                                 "the golden ffb_nendist16.txt")
+                        notes.append("lines equal to ffb_nendist16.txt")
+                    else:
+                        # the temporary directory's name left out
+                        got = got.replace(tmp, "").encode()
+                        notes.append(f"{name} sha256 {_digest(got)}")
+                    continue
+                want = golden(gold)
+                if argv[0] == "msta-lddtmuw1":
+                    got, want = got.rstrip("\n"), want.rstrip("\n")
+                if got != want:
+                    fail(f"{argv[0]}: {name} is not the golden {gold}")
+                notes.append(f"{name} equal to {gold}")
+            if argv[0] == "mudex":
+                want = ("SelfScores: N=60466176, Min=20, LoQ=43, Med=47, "
+                        "HiQ=51, Max=75, Avg=47.3611")
+                if want not in open(path("mudex.log")).read():
+                    fail(f"mudex: the log lacks {want!r}")
+                notes.append("log's SelfScores line the reference's")
+            print(f"[12] {argv[0]}: {secs:.3f} s; {'; '.join(notes)}")
+        try:
+            run_cmd(["mukmerfilter"])
+            fail("mukmerfilter did not exit")
+        except SystemExit as exc:
+            if str(exc) != "Obsolete":
+                raise
+        print("[12] mukmerfilter: SystemExit('Obsolete'), as the reference")
+        for ref, want in (
+                (["-lddt_msa", MSTA, "-input", MSTA_SET, "-output",
+                  path("l_ref.tsv")], "l.tsv"),
+                (["-msta_lddtmuw", MSTA, "-input", MSTA_SET, "-label", "m0",
+                  "-lddtmuw_jalview", path("muw_ref.jv")], "muw.jv")):
+            run_cmd(ref)
+            if open(path(ref[-1])).read() != open(path(want)).read():
+                fail(f"{ref[0]} (reference spelling) differs from the GNU "
+                     "spelling's output")
+            print(f"[12] {' '.join(ref[:1])} (reference spelling): "
+                  f"byte-equal to {want}")
+
+
+def phase_legacy(chains, db) -> dict:
+    """Phase 12, second part: the legacy square-bucket engine
+    (reseek_tpu_torch/search/batched.py) on the card.  On the q100 chains
+    (sensitive; buckets 96 to 1,536): its kernels against their plain
+    versions on the first batch of buckets LEGACY_BUCKETS; the
+    self-reversal scores of every chain bit-equal to the host's full SW
+    against the reversed chain (and to self_rev_score for the chains below
+    the MKF length, which take the MKF route on the host); every pair of
+    batched_self_search (those the host aligns by MKF routed away by
+    skip_pair) with the path, positions and float32 forward score, LDDT
+    and TS of the host PairAligner, and no pair the host does not report.
+    Each of the five kernels must launch, the float sweep never.  Then the
+    1,024-chain replica: wall, pairs/s, stage walls, survivors; every
+    chain below the MKF length has its self hit.  Returns the launch
+    counts of the q100 run."""
+    from reseek_tpu_torch.align.mkf import should_use_mkf
+    from reseek_tpu_torch.align.pipeline import PairAligner, self_rev_score
+    from reseek_tpu_torch.constants import DSSParams
+    from reseek_tpu_torch.encoder.dss import encode_chain
+    from reseek_tpu_torch.ops.postalign import (lddt_batch, lddt_batch_ref,
+                                                walk_traceback_batch,
+                                                walk_traceback_batch_ref)
+    from reseek_tpu_torch.ops.sw_align import (sw_align, sw_align_ref,
+                                               sw_score_profiles,
+                                               sw_score_profiles_ref)
+    from reseek_tpu_torch.ops.sw_sweep import (mu_lane_bits, mu_sw_scores,
+                                               mu_sw_scores_ref)
+    from reseek_tpu_torch.search.batched import (BatchedEngine, DeviceDB,
+                                                 batched_self_search)
+    from reseek_tpu_torch.search.engine import _exact_fwd_score, aligned_coords
+    from reseek_tpu_torch.search.host import _encode_all
+    params = DSSParams.create(MODE)
+    ecs = _encode_all(chains, params, with_self_rev=False)
+    n = len(ecs)
+    with Launches() as launched:
+        t0 = time.perf_counter()
+        ldb = DeviceDB(ecs, params, with_rev_profiles=True, device=DEVICE)
+        t1 = time.perf_counter()
+        eng = BatchedEngine(ldb)
+        srs = eng.self_rev_scores()
+        t2 = time.perf_counter()
+        with ThreadPoolExecutor(os.cpu_count() or 2) as tp:
+            full = np.float32(list(tp.map(lambda ec: _exact_fwd_score(
+                params, ec.profile, encode_chain(ec.chain.reversed()
+                                                 ).profile(params)), ecs)))
+            host_srs = np.float32(list(tp.map(
+                lambda ec: self_rev_score(ec, params), ecs)))
+        short = np.array([len(ec) < params.mkfl for ec in ecs])
+        if not (np.array_equal(srs, full)
+                and np.array_equal(srs[short], host_srs[short])):
+            fail(f"legacy self_rev_scores differ from the host in "
+                 f"{int((srs != full).sum())} chains")
+        print(f"[12] legacy DeviceDB of {n} q100 chains (buckets "
+              f"{ldb.buckets}, rev profiles): {t1 - t0:.2f} s; "
+              f"self_rev_scores {t2 - t1:.3f} s, bit-equal to the host's "
+              f"full SW for all {n} and to self_rev_score for the "
+              f"{int(short.sum())} below {params.mkfl}")
+        for ec, s in zip(ecs, host_srs):
+            ec.self_rev_score = float(s)
+        skipped = []
+        t0 = time.perf_counter()
+        got = batched_self_search(
+            ecs, params, db=ldb, skipped=skipped,
+            skip_pair=lambda i, j: should_use_mkf(ecs[i], ecs[j], params))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launched.require(["mu_sweep", "sw_score", "sw_align", "walk_traceback",
+                      "lddt"], "the legacy engine on q100")
+    if launched.counts["sw_score_sweep"]:
+        fail("the legacy engine launched the float sweep")
+    results = {(r.query, r.target): r for r in got}
+    pa = PairAligner(params)
+    routed = set(skipped)
+    kept = [(i, j) for i in range(n) for j in range(i, n)
+            if (i, j) not in routed]
+    with ThreadPoolExecutor(os.cpu_count() or 2) as tp:
+        host = list(tp.map(lambda ij: pa.align(ecs[ij[0]], ecs[ij[1]]),
+                           kept))
+    n_checked = 0
+    for (i, j), res in zip(kept, host):
+        key = (ecs[i].label, ecs[j].label)
+        if res is None or not res.path or res.evalue > 10.0:
+            if key in results:
+                fail(f"legacy engine: {key} returned, not by the host")
+            continue
+        r = results.get(key)
+        if (r is None or r.path != res.path or (r.lo_a, r.lo_b) != (
+                res.lo_a, res.lo_b) or any(
+                np.float32(getattr(r, f)) != np.float32(getattr(res, f))
+                for f in ("fwd_score", "lddt", "ts"))):
+            fail(f"legacy engine: {key} differs from the host PairAligner")
+        n_checked += 1
+    if n_checked != len(got):
+        fail(f"legacy engine: {len(got)} results, {n_checked} host hits")
+    print(f"[12] legacy batched_self_search on q100: {secs:.2f} s, "
+          f"{len(got)} pairs equal to the host PairAligner (path, lo, "
+          f"float32 fwd, LDDT, TS), {len(skipped)} MKF pairs skipped; "
+          f"stages {json.dumps(ldb.stats)}; launches {launched.counts}")
+
+    # the kernels at the first batch of three buckets of all the pairs,
+    # against their plain versions
+    p = params
+    o, e = -float(p.para_mu_gap_open), -float(p.para_mu_gap_ext)
+    go, ge = float(p.gap_open), float(p.gap_ext)
+    pairs = np.stack(np.triu_indices(n), axis=1).astype(np.int64)
+    lens = np.array([len(ec) for ec in ecs])
+    seen = set()
+    for bucket, chunk, nn, _rows in eng._bucketed(pairs):
+        if bucket not in LEGACY_BUCKETS or bucket in seen:
+            continue
+        seen.add(bucket)
+        ia, ib = eng._sides(chunk)
+        b = ldb.mu[ib, :bucket]
+        a2 = torch.cat([ldb.mu[ia, :bucket], ldb.mu_rev[ia, :bucket]])
+        b2 = torch.cat([b, b])
+        checks = {"mu_sweep": torch.equal(
+            mu_sw_scores(a2, b2, ldb.mu_table, o, e),
+            mu_sw_scores_ref(a2, b2, ldb.mu_table.mumx, o, e))}
+        sargs = (ldb.prof, ldb.prof_rev, ia, ib, ldb.table, bucket, bucket,
+                 go, ge)
+        checks["sw_score"] = torch.equal(sw_score_profiles(*sargs),
+                                         sw_score_profiles_ref(*sargs))
+        aargs = (ldb.prof, ia, ib, ldb.table, bucket, bucket, go, ge)
+        got_a, want_a = sw_align(*aargs), sw_align_ref(*aargs)
+        checks["sw_align"] = all(torch.equal(x, y)
+                                 for x, y in zip(got_a, want_a))
+        walk = walk_traceback_batch(got_a[3], *got_a[:3], bucket)
+        rwalk = walk_traceback_batch_ref(want_a[3], *want_a[:3], bucket)
+        checks["walk_traceback"] = all(torch.equal(x, y)
+                                       for x, y in zip(walk, rwalk))
+        m_cap = int(np.minimum(lens[chunk[:, 0]], lens[chunk[:, 1]]).max())
+        cq, ct, valid, n_m = aligned_coords(walk[3], got_a[1], got_a[2], ia,
+                                            ib, ldb.coords, m_cap)
+        err = float((lddt_batch(cq, ct, valid, n_m, with_risky=False)
+                     - lddt_batch_ref(cq, ct, valid, n_m, with_risky=False)
+                     ).abs().max())
+        checks["lddt"] = err <= LDDT_TOL
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"legacy bucket {bucket}: {bad} differ from their plain "
+                 "versions")
+        print(f"[12] legacy bucket {bucket}, batch {len(chunk)} ({nn} "
+              f"pairs): mu_sweep, sw_score, sw_align, walk_traceback equal "
+              f"to their plain versions, lddt within {LDDT_TOL} "
+              f"(max_abs_err {err:.3g})")
+    if seen != set(LEGACY_BUCKETS):
+        fail(f"legacy: q100's pairs fill buckets {sorted(seen)} of "
+             f"{LEGACY_BUCKETS}")
+    # the Mu filter's int16x2 lanes at the largest preset bucket: the
+    # highest score a 3,072 x 3,072 pair reaches (the best self-scoring
+    # letter throughout), beside three pairs of seeded random letters
+    mt = ldb.mu_table
+    top = int(torch.diagonal(mt.mumx[:36, :36]).argmax())
+    g = torch.Generator().manual_seed(REPLICA_SEED)
+    a = torch.randint(0, 36, (4, 3072), generator=g, dtype=torch.uint8)
+    b = torch.randint(0, 36, (4, 3072), generator=g, dtype=torch.uint8)
+    a[0] = b[0] = top
+    a, b = a.to(ldb.device), b.to(ldb.device)
+    got = mu_sw_scores(a, b, mt, o, e)
+    if (not torch.equal(got, mu_sw_scores_ref(a, b, mt.mumx, o, e))
+            or float(got[0]) != mt.smax * 3072):
+        fail(f"mu_sweep at 3,072 x 3,072: {got.tolist()}")
+    bits = mu_lane_bits(3072, 3072, mt.smax, mt.smin, int(o), int(e))
+    print(f"[12] mu_sweep at 4 x 3072 x 3072 (int{bits} lanes): equal "
+          f"to the plain version, the top pair "
+          f"{float(got[0]):.0f} = {mt.smax} x 3072")
+    counts = launched.counts
+
+    # the 1,024-chain replica, timed
+    ecs = _encode_all(db, params, with_self_rev=False)
+    n = len(ecs)
+    t0 = time.perf_counter()
+    ldb = DeviceDB(ecs, params, with_rev_profiles=True, device=DEVICE)
+    eng = BatchedEngine(ldb)
+    for ec, s in zip(ecs, eng.self_rev_scores()):
+        ec.self_rev_score = float(s)
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with Launches() as launched:
+        skipped = []
+        got = batched_self_search(
+            ecs, params, db=ldb, skipped=skipped,
+            skip_pair=lambda i, j: should_use_mkf(ecs[i], ecs[j], params))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+    launched.require(["mu_sweep", "sw_score", "sw_align", "walk_traceback",
+                      "lddt"], "the legacy engine on the replica")
+    selfs = {r.query for r in got if r.query == r.target}
+    lacking = {ec.label for ec in ecs if len(ec) < params.mkfl} - selfs
+    if lacking:
+        fail(f"legacy replica: {len(lacking)} chains lack a self hit")
+    pairs = n * (n + 1) // 2
+    print(f"[12] legacy batched_self_search, replica of {n} chains: "
+          f"{secs:.2f} s, {pairs / secs:.1f} pairs/s over {pairs} pairs "
+          f"({len(skipped)} MKF pairs skipped), {len(got)} hits, every self "
+          f"hit; DeviceDB + self-rev {t1 - t0:.2f} s; stages "
+          f"{json.dumps(ldb.stats)}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches "
+          f"{launched.counts}")
+    return counts
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -1663,6 +2062,12 @@ def main() -> int:
         phase_io_cmds()
         return 0
     chains = read_chains(Q100)
+    if sys.argv[1:] == ["--msa-cmds"]:
+        # phases 0-1, then the MSA, training and diagnostic commands and
+        # the legacy engine alone
+        phase_msa_cmds()
+        phase_legacy(chains, replica(chains, REPLICA_CHAINS))
+        return 0
     if sys.argv[1:] == ["--stage1"]:
         # phases 0-1, then the replica's stage 1 alone (to compare two
         # versions of the Mu filter in one call)
@@ -1705,7 +2110,11 @@ def main() -> int:
     phase_multiprocess(big)
     phase_bench_cmds()
     launches["io_cmds"] = phase_io_cmds(want_self)
-    print(f"[12] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    t12 = time.perf_counter()
+    phase_msa_cmds()
+    launches["legacy"] = phase_legacy(chains, db)
+    print(f"[12] phase 12: {time.perf_counter() - t12:.1f} s")
+    print(f"[13] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(card)
     # library_ms: no single PyTorch call computes SW, the walk or LDDT;
@@ -1718,6 +2127,7 @@ def main() -> int:
          "bound_ms": res[k]["bound_ms"], "bound_by": res[k]["bound_by"],
          "library_ms": None, "shape": res[k]["shape"],
          "io_cmds_launches": launches["io_cmds"][k],
+         "legacy_launches": launches["legacy"][k],
          **extra_times(res[k])}
         for k, (src, rep, run) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,9 @@ reseek_tpu.cli's ``search`` command.
 
 The other commands (the SCOP40 benchmark, the calibrations and their
 file tools, prefilter-mu and postmufilter, the structure I/O and format
-commands, the Foldseek and MMseqs files, the pair alignments) are in
-cli.py: ``python -m reseek_tpu_torch <command> --help``.
+commands, the Foldseek and MMseqs files, the pair alignments, the MSA
+scoring, training and diagnostic commands: all 59 names of reseek_tpu)
+are in cli.py: ``python -m reseek_tpu_torch <command> --help``.
 
 The reference binary's spelling is accepted too, as reseek_tpu accepts
 it: ``python -m reseek_tpu_torch -search db.cal -sensitive -output
@@ -238,38 +239,17 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-# reseek_tpu's command names: the first argument -<name> (or -<name_with_
-# underscores>) asks for the reference spelling of the command line
-REFERENCE_COMMANDS = frozenset({
-    "convert", "search", "alignpair", "pdb2ss", "pdb2mega", "scop40bench",
-    "prefilter-mu", "distmx", "shuffle", "split", "convert2mu", "gunzip",
-    "cif2pdb", "prepare-query", "lddt-msa", "daliscore-msa",
-    "train-features", "fit-gumbel", "calibrate", "chains2pdbs",
-    "getchains", "bca-stats", "align-bags", "msta-score", "msta-scores",
-    "float-feature-bins", "sscluster", "mmseqs-index-dump",
-    "create-foldseekdb", "convert-foldseekdb", "alignselfrev",
-    "mu-mapping", "lddt-msa-foldmason", "lddt-msas", "daliscore-msas",
-    "gunzip-lines", "musubstmx", "postmufilter", "scop40bit",
-    "scop40bit2tsv", "scop40bit-roc", "scop40bench-tsv", "daliscore-tsv",
-    "align-bag", "tracealn", "feature-stats", "test-gumbel",
-    "scop40tsv2bit", "lddt-bench", "msta-lddtmuw", "msta-lddtmuw1",
-    "mudex", "mukmerfilter", "scan-files", "test-xdrop", "msa2cmp",
-    "binner", "calibrate2", "daliscore-msas2"})
-
-
 def _reference_style(argv: List[str]) -> List[str]:
     """Accept the reference binary's flag spelling (src/myutils.cpp option
     parser): `reseek -search db.bca -sensitive -output hits.tsv` becomes
     `search db.bca --sensitive --output hits.tsv`.  Triggered only when
-    the first argument is -<command> of a command this CLI registers;
-    single-dash long options are rewritten to GNU style, underscores to
-    dashes.  A command of REFERENCE_COMMANDS that the port lacks passes
+    the first argument is -<command> of a command this CLI registers (all
+    59 of reseek_tpu's); single-dash long options are rewritten to GNU
+    style, underscores to dashes.  Any other first argument passes
     through unrewritten, for argparse to reject."""
     if not argv or not argv[0].startswith("-"):
         return argv
     head = argv[0].lstrip("-").replace("_", "-")
-    if head not in REFERENCE_COMMANDS:
-        return argv
     known = _known_options(head)
     if known is None:
         return argv

@@ -18,6 +18,17 @@ reseek_tpu <cmd>`` (``--engine host`` for the search-driven ones).
     mmseqs-index-dump
     pair alignment on the host aligner:  alignpair, align-bag,
     align-bags, alignselfrev, tracealn, test-xdrop
+    MSA scoring (benchmarks/msa.py):  lddt-msa, daliscore-msa,
+    lddt-msa-foldmason, lddt-msas, daliscore-msas, daliscore-msas2,
+    daliscore-tsv, lddt-bench, msta-score, msta-scores, msta-lddtmuw,
+    msta-lddtmuw1, msa2cmp
+    tables and training (benchmarks/train.py):  musubstmx, mu-mapping,
+    float-feature-bins, sscluster, train-features, feature-stats
+    diagnostics:  mudex, binner, mukmerfilter (obsolete, as in the
+    reference)
+
+With ``search`` (__main__.py) these are all 59 command names of
+reseek_tpu.
 
 ``calibrate2`` ends in a SystemExit before any search when the set has no
 false pair at its bench level, where reseek_tpu's raises ZeroDivisionError
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import io
+import os
 import sys
 from typing import Optional
 
@@ -621,7 +633,6 @@ def cmd_cif2pdb(args) -> int:
 
 def cmd_chains2pdbs(args) -> int:
     """Write each chain to its own PDB file (src/chains2pdbs.cpp)."""
-    import os
     from reseek_tpu_torch.io.pdb import write_pdb
     from reseek_tpu_torch.io.reader import read_chains
     os.makedirs(args.outdir, exist_ok=True)
@@ -909,7 +920,6 @@ def cmd_mmseqs_index_dump(args) -> int:
     MMseqs2/Foldseek hits DB (prefix + .index + .dbtype) as text —
     `index\\t<pos>\\t<len>` per record then its lines, non-printing bytes
     shown as '@'."""
-    import os as _os
     prefix = args.prefix
     with open(prefix + ".dbtype", "rb") as f:
         dbtype = f.read()
@@ -947,9 +957,9 @@ def cmd_mmseqs_index_dump(args) -> int:
                 out.write("\n")
     if out is not None:
         out.close()
-    if nextpos != _os.path.getsize(prefix):
+    if nextpos != os.path.getsize(prefix):
         print("warning: index does not cover the hits file "
-              f"({nextpos} != {_os.path.getsize(prefix)})",
+              f"({nextpos} != {os.path.getsize(prefix)})",
               file=sys.stderr)
     print(f"{recnr} records, {hitcount} hits, {nonprint} "
           "non-printing bytes", file=sys.stderr)
@@ -1325,6 +1335,1063 @@ def cmd_test_xdrop(args) -> int:
     return 0
 
 
+def cmd_daliscore_tsv(args) -> int:
+    """-daliscore_tsv (src/daliscore_tsv.cpp:28-93): recompute DALI Z
+    for each row of a DALI-format TSV (9 fields; gapped rows in fields
+    8/9) and print `Zin Z labelQ labelR` per pair."""
+    from reseek_tpu_torch.benchmarks.msa import dali_score, dali_z
+    from reseek_tpu_torch.io.reader import read_chains
+
+    by_label = {c.label: c for c in read_chains(args.input)}
+    out = open(args.output, "w") if args.output else sys.stdout
+
+    def aligned_positions(row_q, row_r):
+        q = np.frombuffer(row_q.encode("ascii"), np.uint8)
+        r = np.frombuffer(row_r.encode("ascii"), np.uint8)
+        gap_q = (q == ord("-")) | (q == ord("."))
+        gap_r = (r == ord("-")) | (r == ord("."))
+        pos_q = np.cumsum(~gap_q) - 1
+        pos_r = np.cumsum(~gap_r) - 1
+        both = ~gap_q & ~gap_r
+        return pos_q[both], pos_r[both]
+
+    try:
+        with open(args.tsv) as f:
+            for line in f:
+                fields = line.rstrip("\n").split("\t")
+                if len(fields) != 9:
+                    raise SystemExit(
+                        f"expected 9 fields, got {len(fields)}")
+                lq, lr = fields[0], fields[1]
+                zin = float(fields[2])
+                cq = by_label.get(lq)
+                cr = by_label.get(lr)
+                if cq is None or cr is None:
+                    raise SystemExit(f"chain not found: {lq} / {lr}")
+                pq, pr = aligned_positions(fields[7], fields[8])
+                z = dali_z(dali_score(cq, cr, pq, pr), len(cq), len(cr))
+                out.write("%.1f %.1f %s %s\n" % (zin, z, lq, lr))
+    finally:
+        if args.output:
+            out.close()
+    return 0
+
+
+def cmd_musubstmx(args) -> int:
+    """-musubstmx (src/mumx.cpp:33-172): emit the 36x36 Mu matrix as C
+    source tables (float, int-rounded, 2x int-rounded) in the
+    reference's fprintf layout.  (The reference command derives the
+    matrix from g_ScoreMxs2[SS3/NENSS3/RENDist4], which are never
+    initialized — it segfaults; the shipped matrix in mumx_data.cpp is
+    the authoritative data, so that is what this prints.)"""
+    from reseek_tpu_torch.data.tables import get_tables
+
+    t = get_tables()
+    mu = t.mu_score_mx.astype(np.float32)
+
+    def half_down(x):
+        # the shipped int table rounds exact halves DOWN
+        # (-0.5 -> -1, 0.5 -> 0 in mumx_data.cpp)
+        return int(np.ceil(x - 0.5))
+
+    int_tabs = (("Mu", t.mu_score_mx_int8),
+                ("Mu_x2", np.vectorize(half_down)(2.0 * mu)))
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        out.write("\nfloat ScoreMx_Mu[36][36] = {\n")
+        for i in range(36):
+            out.write("  {")
+            for j in range(36):
+                out.write(" %5.2ff," % mu[i, j])
+            out.write("  }, // %u\n" % i)
+        out.write("};\n")
+        for name, tab in int_tabs:
+            out.write("\n\nint IntScoreMx_%s[36][36] = {\n" % name)
+            for i in range(36):
+                out.write("  {")
+                for j in range(36):
+                    out.write(" %3d," % int(tab[i, j]))
+                out.write("  }, // %u\n" % i)
+            out.write("};\n")
+    finally:
+        if args.output:
+            out.close()
+    return 0
+
+
+def cmd_mu_mapping(args) -> int:
+    """-mu_mapping (src/mu_mapping.cpp:7-44): table of the 36 Mu letters
+    decomposed into their sub-feature letters (Mu = SS3 + 3*NENSS3 +
+    9*RENDist4, src/dss.cpp:629-644).  (The reference command itself
+    dies on an assert — GetFeatureChar on sub-alphabet sizes — so there
+    is no binary golden; this prints the working table.)"""
+    chars = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghij"
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        out.write("Mu\tSS3\tNENSS3\tRENDist4\n")
+        for letter in range(36):
+            ss3 = letter % 3
+            nenss3 = (letter // 3) % 3
+            rendist4 = letter // 9
+            out.write("%c\t%c\t%c\t%c\n" % (chars[letter], chars[ss3],
+                                            chars[nenss3],
+                                            chars[rendist4]))
+    finally:
+        if args.output:
+            out.close()
+    return 0
+
+
+def cmd_lddt_msa_foldmason(args) -> int:
+    """-lddt_msa_foldmason (src/lddt_msa_foldmason.cpp:6-30): whole-MSA
+    foldmason LDDT."""
+    from reseek_tpu_torch.benchmarks.msa import lddt_foldmason
+    from reseek_tpu_torch.io.reader import read_chains
+
+    chains = read_chains(args.input)
+    name = os.path.splitext(os.path.basename(args.msa))[0]
+    _msa, core_mask, matched, maps = _msta_setup(args.msa, chains,
+                                                 args.core)
+    lddt = lddt_foldmason(matched, maps, core_mask)
+    line = "LDDT_fm=%.4f\tMSA=%s\n" % (lddt, name)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(line)
+    print(line, end="", file=sys.stderr)
+    return 0
+
+
+def _batch_msa_cmd(args, metric: str) -> int:
+    """Shared body of lddt-msas / daliscore-msas
+    (src/lddt_msas.cpp:6-80, src/daliscore_msas.cpp:6-63)."""
+    from reseek_tpu_torch.benchmarks.msa import (dali_score, dali_z,
+                                                 lddt_msa_pair)
+    from reseek_tpu_torch.io.reader import read_chains
+
+    chains = read_chains(args.input)
+    with open(args.accs) as f:
+        accs = [ln.strip() for ln in f if ln.strip()]
+    testdir = args.testdir.rstrip("/") + "/"
+    out = open(args.output, "w") if args.output else sys.stdout
+    total = 0.0
+    n_found = 0
+    try:
+        for acc in accs:
+            fn = testdir + acc
+            if not os.path.exists(fn):
+                out.write(f"missing_aln={fn}\n")
+                continue
+            n_found += 1
+            msa, core_mask, matched, maps = _msta_setup(fn, chains,
+                                                        args.core)
+            v_sum = 0.0
+            np_pairs = 0
+            for i in range(len(msa)):
+                for j in range(i + 1, len(msa)):
+                    if i not in matched or j not in matched:
+                        continue
+                    ci, cj = matched[i], matched[j]
+                    np_pairs += 1
+                    if metric == "lddt":
+                        v_sum += lddt_msa_pair(ci, cj, maps[i], maps[j])
+                    else:
+                        both = (maps[i] >= 0) & (maps[j] >= 0)
+                        v_sum += dali_z(
+                            dali_score(ci, cj, maps[i][both],
+                                       maps[j][both]),
+                            len(ci), len(cj))
+            v = v_sum / np_pairs if np_pairs else 0.0
+            total += v
+            if metric == "lddt":
+                out.write("aln=%s\tLDDT_mu=%.4f" % (fn, v))
+                if args.core:
+                    out.write("\tnr_core_cols=%u" % int(core_mask.sum()))
+            else:
+                out.write("aln=%s\tZ=%.1f" % (fn, v))
+                if args.core:
+                    out.write("\tnr_core=%u" % int(core_mask.sum()))
+            out.write("\n")
+        mean = total / n_found if n_found else 0.0
+        if metric == "lddt":
+            out.write("testdir=%s\tavg_LDDT_mu=%.4f\n" % (testdir, mean))
+        else:
+            out.write("testdir=%s\tZ=%.1f\n" % (testdir, mean))
+    finally:
+        if args.output:
+            out.close()
+    return 0
+
+
+def cmd_lddt_msas(args) -> int:
+    """-lddt_msas: batch MSA LDDT_mu over an accession list."""
+    return _batch_msa_cmd(args, "lddt")
+
+
+def cmd_daliscore_msas(args) -> int:
+    """-daliscore_msas: batch MSA DALI Z over an accession list.
+    (The reference's cmd_daliscore_msas has an inverted success check —
+    `if (Ok) Die(...)`, src/daliscore_msas.cpp:40-41 — so the binary
+    cannot actually run it; this implements the evident intent, with
+    row formats matching its fprintf strings.)"""
+    return _batch_msa_cmd(args, "dali")
+
+
+def cmd_float_feature_bins(args) -> int:
+    """-float_feature_bins (src/float_feature_bins.cpp:67-166): from
+    trusted pairwise alignments, collect a float feature's values at
+    aligned columns, derive quantile bin thresholds per alphabet size,
+    and report each size's expected log-odds score plus BIN_T lines
+    (the reference writes these to its -log; here to --output/stdout)."""
+    from reseek_tpu_torch.benchmarks.train import (LogOdds, _aligned_positions,
+                                                   read_aligned_pairs)
+    from reseek_tpu_torch.encoder.dss import float_feature_values
+    from reseek_tpu_torch.io.reader import read_chains
+
+    chains = read_chains(args.train_cal)
+    by_dom = {c.label.split("/")[0]: c for c in chains}
+    pairs = read_aligned_pairs(args.pairs)
+    cache = {}
+
+    def vals(c):
+        if c.label not in cache:
+            cache[c.label] = float_feature_values(c, args.feature)
+        return cache[c.label]
+
+    v1, v2 = [], []
+    for lq, rq, lr, rr in pairs:
+        qc = by_dom[lq.split("/")[0]]
+        rc = by_dom[lr.split("/")[0]]
+        pq, pr = _aligned_positions(rq, rr)
+        vq = vals(qc)[pq]
+        vr = vals(rc)[pr]
+        ok = np.isfinite(vq) & np.isfinite(vr)
+        v1.extend(vq[ok])
+        v2.extend(vr[ok])
+    v1 = np.asarray(v1)
+    v2 = np.asarray(v2)
+    values = np.sort(np.concatenate([np.stack([v1, v2], 1).ravel()]))
+    if len(values) == 0:
+        raise SystemExit("no aligned defined values")
+    print("Value range %.3g .. %.3g" % (values[0], values[-1]),
+          file=sys.stderr)
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        sizes = ([args.alpha_size] if args.alpha_size
+                 else [3, 4, 6, 8, 10, 12, 16, 24, 32])
+        k_tot = len(values)
+        for a in sizes:
+            ts = np.array([values[((i + 1) * k_tot) // a]
+                           for i in range(a - 1)])
+            # DSS::ValueToInt (src/dss.cpp:840-847): first i with
+            # value <= Ts[i], else N
+            i1 = np.searchsorted(ts, v1, side="left")
+            i2 = np.searchsorted(ts, v2, side="left")
+            lo = LogOdds(a)
+            lo.add_background(i1)
+            lo.add_background(i2)
+            lo.add_true_pairs(i1, i2)
+            mx, expected = lo.log_odds_mx()
+            print("%s: AlphaSize %u, ExpectedScore %.4g"
+                  % (args.feature, a, expected), file=sys.stderr)
+            out.write("\n// %s [%2u] expected score %.4g\n"
+                      % (args.feature, a, expected))
+            out.write("ALPHA_SIZE(%s, %u);\n" % (args.feature, a))
+            out.write("BIN_T_BEGIN(%s);\n" % args.feature)
+            for i in range(a - 1):
+                out.write("BIN_T(%s, %u, %.4g);\n"
+                          % (args.feature, i, ts[i]))
+            out.write("BIN_T_END(%s);\n" % args.feature)
+    finally:
+        if args.output:
+            out.close()
+    return 0
+
+
+def cmd_sscluster(args) -> int:
+    """-sscluster (src/sscluster.cpp:171-371): k-means over per-residue
+    intra-window CA distance vectors (pairs (i, j) in [-2, 2] excluding
+    adjacent; +3 extra pairs with --myss3), reporting centroid means and
+    the SS-letter correlation per cluster.  Functional equivalent of the
+    reference trainer: initialization uses a seeded numpy RNG rather
+    than the reference's randu32 stream, so cluster numbering can
+    differ; the shipped Conf centroids live in data/tables.npz."""
+    from reseek_tpu_torch.encoder.dss import _banded_distances, compute_ss
+    from reseek_tpu_torch.io.reader import read_chains
+
+    chains = read_chains(args.input)
+    k = args.k
+    n_max = args.n
+    ij = [(min(i, j), max(i, j))
+          for i in range(-2, 3) for j in range(i + 1, 3)
+          if abs(j - i) != 1]
+    if args.myss3:
+        ij += [(-3, 3), (0, 3), (-3, 0)]
+    m = len(ij)
+
+    from reseek_tpu_torch.encoder.dss import BAND_W
+    vs, sss = [], []
+    for c in chains:
+        L = len(c)
+        ss = compute_ss(c.coords, _banded_distances(c.coords, BAND_W))
+        ss_chars = "hst~"
+        for p in range(3, L - 3):
+            v = [float(np.linalg.norm(c.coords[p + i] - c.coords[p + j]))
+                 for i, j in ij]
+            vs.append(v)
+            sss.append(ss_chars[ss[p]] if ss[p] < 4 else "~")
+            if len(vs) >= n_max:
+                break
+        if len(vs) >= n_max:
+            break
+    x = np.asarray(vs)
+    n = len(x)
+    rng = np.random.default_rng(args.randseed)
+    assign = rng.integers(0, k, n)
+    for it in range(100):
+        means = np.stack([x[assign == kk].mean(axis=0)
+                          if (assign == kk).any()
+                          else x[rng.integers(0, n)]
+                          for kk in range(k)])
+        d = np.linalg.norm(x[:, None, :] - means[None], axis=2)
+        new = d.argmin(axis=1)
+        changes = int((new != assign).sum())
+        assign = new
+        print(f"Iter {it}, {changes} changes", file=sys.stderr)
+        if changes == 0:
+            print("=== CONVERGED ===", file=sys.stderr)
+            break
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        sizes = np.bincount(assign, minlength=k)
+        order = np.argsort(-sizes, kind="stable")
+        out.write("//          " + "".join("  %10s" % f"{i},{j}"
+                                           for i, j in ij) + "\n")
+        sss = np.asarray(sss)
+        for rank, kk in enumerate(order):
+            mean = x[assign == kk].mean(axis=0) if sizes[kk] else \
+                np.zeros(m)
+            out.write("Mean[%3u] " % rank
+                      + "".join(" %10.4g" % v for v in mean))
+            cnt = {c: int((sss[assign == kk] == c).sum())
+                   for c in "hst~"}
+            out.write("  size=%.1f%%  h=%d s=%d t=%d ~=%d\n"
+                      % (100.0 * sizes[kk] / max(n, 1), cnt["h"],
+                         cnt["s"], cnt["t"], cnt["~"]))
+    finally:
+        if args.output:
+            out.close()
+    return 0
+
+
+def _msta_setup(msa_path: str, chains, core: bool):
+    """Shared MSA setup for the msta commands (DALIScorer::SetMSA,
+    src/daliscorer.cpp): rows, core mask, col->pos maps, matched
+    chains."""
+    from reseek_tpu_torch.benchmarks.msa import (_match_chains, col_to_pos,
+                                                 core_columns, read_msa_fasta)
+    msa = read_msa_fasta(msa_path)
+    rows = [r for _, r in msa]
+    core_mask = core_columns(rows) if core else None
+    matched = _match_chains(msa, chains)
+    maps = [col_to_pos(r, core_mask) for r in rows]
+    return msa, core_mask, matched, maps
+
+
+def cmd_msta_score(args) -> int:
+    """-msta_score (src/msta_score.cpp:6-97): all-pairs MSA structure
+    scores — LDDT_mu (muscle convention), DALI Z, Z15 (R0=15-gated DALI)
+    — plus the whole-MSA foldmason LDDT and averages."""
+    from reseek_tpu_torch.benchmarks.msa import (dali_score, dali_z,
+                                                 lddt_foldmason, lddt_msa_pair)
+    from reseek_tpu_torch.io.reader import read_chains
+
+    chains = read_chains(args.input)
+    name = os.path.splitext(os.path.basename(args.msa))[0]
+    msa, core_mask, matched, maps = _msta_setup(args.msa, chains,
+                                                args.core)
+    out = open(args.output, "w") if args.output else sys.stdout
+    sum_z = sum_z15 = sum_lddt = 0.0
+    n_pairs = 0
+    try:
+        for i in range(len(msa)):
+            for j in range(i + 1, len(msa)):
+                l1, l2 = msa[i][0], msa[j][0]
+                if i not in matched or j not in matched:
+                    out.write(f"{l1}\t{l2}\tERROR_structure_not_found\n")
+                    continue
+                ci, cj = matched[i], matched[j]
+                n_pairs += 1
+                lddt_mu = lddt_msa_pair(ci, cj, maps[i], maps[j])
+                both = (maps[i] >= 0) & (maps[j] >= 0)
+                pq, pt = maps[i][both], maps[j][both]
+                z = dali_z(dali_score(ci, cj, pq, pt), len(ci), len(cj))
+                z15 = dali_z(dali_score(ci, cj, pq, pt, r0=15.0),
+                             len(ci), len(cj))
+                sum_z += z
+                sum_z15 += z15
+                sum_lddt += lddt_mu
+                out.write("label1=%s\tlabel2=%s\tLDDT_mu=%.4f\t"
+                          "Z=%.3f\tZ15=%.3f\n" % (l1, l2, lddt_mu, z, z15))
+        lddt_fm = lddt_foldmason(matched, maps, core_mask)
+        mz = sum_z / n_pairs if n_pairs else 0.0
+        mz15 = sum_z15 / n_pairs if n_pairs else 0.0
+        ml = sum_lddt / n_pairs if n_pairs else 0.0
+        out.write("MSA=%s\tLDDT_fm=%.4f\tavg_LDDT_mu=%.4f\t"
+                  "avg_Z=%.3f\tavg_Z15=%.3f\n" % (name, lddt_fm, ml, mz,
+                                                  mz15))
+    finally:
+        if args.output:
+            out.close()
+    return 0
+
+
+def cmd_msta_scores(args) -> int:
+    """-msta_scores (src/msta_scores.cpp:6-113): batch MSA scoring — for
+    each accession in the list file, score testdir/<acc> (mean pairwise
+    DALI Z and LDDT_mu), then print per-MSA rows and the averages."""
+    from reseek_tpu_torch.benchmarks.msa import (dali_score, dali_z,
+                                                 lddt_msa_pair)
+    from reseek_tpu_torch.io.reader import read_chains
+
+    chains = read_chains(args.input)
+    with open(args.accs) as f:
+        accs = [ln.strip() for ln in f if ln.strip()]
+    testdir = args.testdir.rstrip("/") + "/"
+    out = open(args.output, "w") if args.output else sys.stdout
+    sum_z = sum_lddt = 0.0
+    n_found = 0
+    try:
+        for acc in accs:
+            fn = testdir + acc
+            if not os.path.exists(fn):
+                out.write(f"missing_aln={fn}\n")
+                continue
+            msa, core_mask, matched, maps = _msta_setup(fn, chains,
+                                                        args.core)
+            if not msa:
+                out.write(f"empty_aln={fn}\n")
+                continue
+            n_found += 1
+            z_sum = l_sum = 0.0
+            np_pairs = 0
+            for i in range(len(msa)):
+                for j in range(i + 1, len(msa)):
+                    if i not in matched or j not in matched:
+                        continue
+                    ci, cj = matched[i], matched[j]
+                    np_pairs += 1
+                    both = (maps[i] >= 0) & (maps[j] >= 0)
+                    z_sum += dali_z(
+                        dali_score(ci, cj, maps[i][both], maps[j][both]),
+                        len(ci), len(cj))
+                    l_sum += lddt_msa_pair(ci, cj, maps[i], maps[j])
+            z = z_sum / np_pairs if np_pairs else 0.0
+            lddt_mu = l_sum / np_pairs if np_pairs else 0.0
+            sum_z += z
+            sum_lddt += lddt_mu
+            out.write("aln=%s\tseqs=%u\tZ=%.3f\tLDDT_mu=%.4f"
+                      % (fn, len(msa), z, lddt_mu))
+            if args.core:
+                out.write("\tnr_core_cols=%u" % int(core_mask.sum()))
+            out.write("\n")
+        mz = sum_z / n_found if n_found else 0.0
+        ml = sum_lddt / n_found if n_found else 0.0
+        out.write("testdir=%s\tavg_Z=%.4f\tavg_LDDT_mu=%.4f\n"
+                  % (testdir, mz, ml))
+    finally:
+        if args.output:
+            out.close()
+    return 0
+
+
+def cmd_msa_score(args) -> int:
+    """-lddt_msa / -daliscore_msa (src/lddt_msa.cpp:10-62,
+    src/daliscore_msa.cpp): score every chain pair of an MSA against the
+    structures; prints per-pair values and the mean."""
+    from reseek_tpu_torch.benchmarks.msa import score_msa
+    from reseek_tpu_torch.io.reader import read_chains
+
+    chains = read_chains(args.input)
+    rows, mean = score_msa(args.msa, chains, metric=args.metric,
+                           core=args.core)
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        sum_score = 0.0
+        for l1, l2, v in rows:
+            if v is None:
+                out.write(f"{l1}\t{l2}\tERROR_structure_not_found\n")
+            elif args.metric == "lddt":
+                out.write("%s\t%s\t%.4f\n" % (l1, l2, v))
+            else:
+                s, z = v
+                sum_score += s
+                out.write("%s\t%s\t%.3g\t%.1f\n" % (l1, l2, s, z))
+        # summary uses the MSA stem name and, for DALI, the TOTAL score
+        # (GetStemName + GetSumScore_Rows, src/daliscore_msa.cpp:25-49) —
+        # golden-tested vs the binary on the msta fixture
+        name = os.path.splitext(os.path.basename(args.msa))[0]
+        if args.metric == "lddt":
+            out.write("LDDT=%.4f\tMSA=%s\n" % (mean, name))
+        else:
+            out.write("Z=%.1f\tScore=%.1f\tMSA=%s\n"
+                      % (mean, sum_score, name))
+    finally:
+        if args.output:
+            out.close()
+    print("%s mean %.4f over %d pairs"
+          % (args.metric, mean, sum(v is not None for _, _, v in rows)),
+          file=sys.stderr)
+    return 0
+
+
+def cmd_train_features(args) -> int:
+    """-train_features (src/train_features.cpp): count aligned
+    feature-pair frequencies from trusted alignments, emit log-odds
+    matrices in the WriteLOInt8 layout."""
+    from reseek_tpu_torch.benchmarks.train import train_features, write_trained
+    from reseek_tpu_torch.constants import DSSParams
+    from reseek_tpu_torch.io.reader import read_chains
+
+    feats = (args.features.split(",") if args.features
+             else list(DSSParams.create("sensitive").features))
+    chains = read_chains(args.input)
+    los = train_features(chains, args.alns, feats)
+    with open(args.output, "w") as f:
+        write_trained(f, los)
+    print(f"{len(feats)} features trained on {len(chains)} chains",
+          file=sys.stderr)
+    return 0
+
+
+def cmd_feature_stats(args) -> int:
+    """-feature_stats (src/features.cpp:59-71): list the feature registry
+    with trained-score-matrix availability (golden vs the binary)."""
+    from reseek_tpu_torch.constants import ALL_FEATURES
+    from reseek_tpu_torch.data.tables import _NPZ
+    trained = {k[:-5] for k in np.load(_NPZ).files if k.endswith("_S_ij")}
+    for i, name in enumerate(ALL_FEATURES):
+        line = "[%2u]  %s" % (i, name)
+        if name not in trained:
+            line += "  < missing scoremx"
+        print(line)
+    return 0
+
+
+def cmd_lddt_bench(args) -> int:
+    """-lddt_bench (src/lddt_bench.cpp:14-119): mean GetLDDT_mu_fast over
+    all MSA sequence pairs (column maps treat only '-' as gap, matching
+    the reference's raw row scan); prints `LDDT=%.4f MSA=%s`.  The
+    reference runs 20 timing iterations; the score is iteration-
+    independent so one pass is reported (it is a kernel benchmark)."""
+    from reseek_tpu_torch.benchmarks.msa import read_msa_fasta
+    from reseek_tpu_torch.io.reader import read_chains
+    from reseek_tpu_torch.ops.lddt import lddt_mu_fast_np
+
+    msa = read_msa_fasta(args.msa)
+    chains = {c.label: c for c in read_chains(args.input)}
+    name = os.path.splitext(os.path.basename(args.msa))[0]
+    total, count = 0.0, 0
+    for i in range(len(msa)):
+        li, ri = msa[i]
+        for j in range(i + 1, len(msa)):
+            lj, rj = msa[j]
+            if li not in chains or lj not in chains:
+                raise SystemExit(f"structure_not_found {li} {lj}")
+            p1, p2 = [], []
+            a = b = 0
+            for c1, c2 in zip(ri, rj):
+                if c1 != "-" and c2 != "-":
+                    p1.append(a)
+                    p2.append(b)
+                if c1 != "-":
+                    a += 1
+                if c2 != "-":
+                    b += 1
+            total += lddt_mu_fast_np(chains[li].coords, chains[lj].coords,
+                                     np.array(p1, np.int64),
+                                     np.array(p2, np.int64))
+            count += 1
+    lddt = total / count if count else 0.0
+    print("LDDT=%.4f MSA=%s" % (lddt, name))
+    return 0
+
+
+
+
+_MUW_COLORS3 = {"h": "0,150,20", "s": "150,0,50", "t": "250,150,0",
+                "~": "150,150,150", "-": "255,255,255"}
+
+
+
+
+def _muw_smooth_s3(s3: list) -> None:
+    """SmoothS3 (src/msta_lddtmuw.cpp:159-193): isolated h/s columns take
+    their neighbors' class (or '~' when neighbors disagree)."""
+    n = len(s3)
+    for col in range(n):
+        c3 = s3[col]
+        if c3 not in ("s", "h"):
+            continue
+        prev = next_ = None
+        for i in range(col - 1, -1, -1):
+            if s3[i] not in "-.":
+                prev = s3[i]
+                break
+        for i in range(col + 1, n):
+            if s3[i] not in "-.":
+                next_ = s3[i]
+                break
+        if prev is None or next_ is None:
+            continue
+        if prev != c3 and next_ != c3:
+            s3[col] = prev if prev == next_ else "~"
+
+
+def cmd_msta_lddtmuw(args) -> int:
+    """-msta_lddtmuw (src/msta_lddtmuw.cpp:196-325): per-column windowed
+    LDDT of an MSA; writes a Jalview BAR_GRAPH annotation colored by the
+    SS3 consensus (--lddtmuw-jalview) and/or a PyMOL coloring script for
+    one query (--label + --lddtmuw-pymol).  Golden-tested vs the binary
+    on the msta fixture."""
+    from reseek_tpu_torch.benchmarks.msa import lddt_muw_setup
+    from reseek_tpu_torch.encoder.dss import (BAND_W, _banded_distances,
+                                              compute_ss)
+    from reseek_tpu_torch.io.reader import read_chains
+
+    if args.lddtmuw_pymol and not args.label:
+        raise SystemExit("--lddtmuw-pymol requires --label")
+    chains = read_chains(args.input)
+    if len(chains) < 2:
+        raise SystemExit(f"need >= 2 structures in {args.input}")
+    muw = lddt_muw_setup(args.msa, chains)
+    w = args.window
+    n_cols = len(muw.msa[0][1]) if muw.msa else 0
+    scores = [muw.col_score(col, w) for col in range(n_cols)]
+
+    if args.lddtmuw_jalview:
+        # SS3 consensus per column over the SS-mapped MSA rows
+        ss_rows = []
+        for s, (_label, row) in enumerate(muw.msa):
+            if s not in muw.matched:
+                continue
+            c = muw.matched[s]
+            ss = "".join("hst~"[v] for v in compute_ss(
+                c.coords, _banded_distances(c.coords, BAND_W)))
+            out_row = []
+            pos = 0
+            for ch in row:
+                if ch in "-.":
+                    out_row.append(ch)
+                else:
+                    out_row.append(ss[pos])
+                    pos += 1
+            ss_rows.append(out_row)
+        s3 = []
+        for col in range(n_cols):
+            counts = {k: 0 for k in "hst~"}
+            for r in ss_rows:
+                if r[col] in counts:
+                    counts[r[col]] += 1
+            best, bc = "-", 0
+            for k in "hst~":
+                if counts[k] > bc:
+                    bc = counts[k]
+                    best = k
+            s3.append(best)
+        _muw_smooth_s3(s3)
+        with open(args.lddtmuw_jalview, "w") as f:
+            f.write("JALVIEW_ANNOTATION\n")
+            f.write("BAR_GRAPH\tLDDT-muw\t")
+            f.write("|".join("%.3f[%s]" % (scores[col],
+                                           _MUW_COLORS3[s3[col]])
+                             for col in range(n_cols)))
+            f.write("\n")
+
+    if args.label:
+        thresholds = [0.1 * k for k in range(1, 10)]
+
+        def get_bin(v):
+            for i, t in enumerate(thresholds):
+                if v <= t:
+                    return i
+            return len(thresholds)
+
+        q = next((s for s, (l, _r) in enumerate(muw.msa)
+                  if l == args.label), None)
+        if q is None:
+            raise SystemExit(f"label {args.label} not in MSA")
+        row = muw.msa[q][1]
+        bins = [get_bin(scores[col]) for col, ch in enumerate(row)
+                if ch not in "-."]
+        if args.lddtmuw_pymol and bins:
+            with open(args.lddtmuw_pymol, "w") as f:
+                f.write("select tmp, all\ncolor br0, tmp\n")
+                start, cur = 0, bins[0]
+                for pos in range(1, len(bins)):
+                    if bins[pos] != cur:
+                        f.write(f"select tmp, resi {start + 1}-{pos}\n")
+                        f.write(f"color br{cur}, tmp\n")
+                        start, cur = pos, bins[pos]
+                f.write(f"select tmp, resi {start + 1}-{len(bins)}\n")
+                f.write(f"color br{cur}, tmp\nselect none\n")
+    return 0
+
+
+def cmd_msta_lddtmuw1(args) -> int:
+    """-msta_lddtmuw1 (src/msta_lddtmuw1.cpp:143-239): per-position
+    windowed LDDT of one query sequence vs the rest of the MSA, with the
+    reference's quirk REPLICATED: the query position (not the column
+    index) is passed as the column to GetLDDTMuW1, so positions are
+    looked up at column = ungapped query position.  Golden-tested."""
+    from reseek_tpu_torch.benchmarks.msa import lddt_muw_setup
+    from reseek_tpu_torch.io.reader import read_chains
+
+    chains = read_chains(args.input)
+    muw = lddt_muw_setup(args.msa, chains)
+    q = next((s for s, (l, _r) in enumerate(muw.msa)
+              if l == args.label), None)
+    if q is None:
+        raise SystemExit(f"label {args.label} not in MSA")
+    row = muw.msa[q][1]
+    qseq = "".join(ch for ch in row if ch not in "-.").upper()
+
+    def symbol(v):
+        if v == 0:
+            return " "
+        if v < 0.2:
+            return "."
+        if v < 0.5:
+            return ":"
+        if v < 0.75:
+            return "|"
+        return "@"
+
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        vals = []
+        pos_q = 0
+        for ch in row:
+            if ch in "-.":
+                continue
+            v = muw.query_score(q, pos_q, args.window)  # quirk: col=pos
+            out.write("%u  %c  %.4f\n" % (pos_q, ch, v))
+            vals.append(v)
+            pos_q += 1
+        out.write(qseq + "\n")
+        out.write("".join(symbol(v) for v in vals) + "\n")
+    finally:
+        if args.output:
+            out.close()
+    return 0
+
+
+def cmd_mudex(args) -> int:
+    """-mudex (src/mudex.cpp:540-599): k-mer index diagnostics over a Mu
+    FASTA — dictionary-wide self-score quartiles (exact, via 5-fold
+    convolution of the diagonal-score histogram instead of sorting the
+    60,466,176-entry array) and the occupancy histogram by max-letter
+    multiplicity.  Output matches the reference binary on q100.mu.fa
+    (golden-tested)."""
+    from reseek_tpu_torch.data.tables import get_tables
+    from reseek_tpu_torch.search.prefilter import (K_SPAN, OFFSETS,
+                                                   read_mu_fasta)
+    from reseek_tpu_torch.utils.logger import open_log
+
+    lg = open_log(args.log)
+    _labels, mus = read_mu_fasta(args.input)
+
+    diag = np.diag(get_tables().mu_prefilter_mx_int8)[:36].astype(np.int64)
+    # distribution of SelfScore over the full 36^5 dictionary: 5-fold
+    # convolution of the per-letter diagonal histogram
+    hist = np.bincount(diag, minlength=int(diag.max()) + 1)
+    dist = np.array([1], np.int64)
+    for _ in range(5):
+        dist = np.convolve(dist, hist)
+    n_total = int(dist.sum())
+    assert n_total == 36 ** 5
+    cum = np.cumsum(dist)
+    scores = np.arange(len(dist))
+
+    def at(rank):  # sorted-array index semantics of GetQuarts
+        return int(scores[np.searchsorted(cum, rank + 1)])
+
+    total = int((scores * dist).sum())
+    mn = int(scores[np.flatnonzero(dist)[0]])
+    mx = int(scores[np.flatnonzero(dist)[-1]])
+    lg.log("SelfScores: N=%u, Min=%u, LoQ=%u, Med=%u, HiQ=%u, Max=%u, "
+           "Avg=%g\n" % (n_total, mn, at(n_total // 4),
+                         at(n_total // 2), at(3 * n_total // 4), mx,
+                         total / n_total))
+    print("Validate OK")
+
+    # occupancy by max letter multiplicity of the UNMASKED spaced k-mers
+    # (cmd_mudex builds the index before self-score masking)
+    counts = np.zeros(6, np.int64)
+    for mu in mus:
+        lets = np.asarray(mu, np.int64)
+        n = len(lets) - K_SPAN + 1
+        if n <= 0:
+            continue
+        cols = np.stack([lets[o: o + n] for o in OFFSETS])  # [5, n]
+        maxmult = np.zeros(n, np.int64)
+        for letter in range(36):
+            maxmult = np.maximum(maxmult, (cols == letter).sum(axis=0))
+        counts += np.bincount(np.maximum(maxmult, 1), minlength=6)
+    total_k = int(counts.sum())
+    for i in range(1, 6):
+        pct = 100.0 * counts[i] / total_k if total_k else 0.0
+        print("Max letters [%u] = %u (%.1f%%)" % (i, counts[i], pct))
+    return 0
+
+
+def cmd_daliscore_msas2(args) -> int:
+    """-daliscore_msas2 (src/daliscore_msas2.cpp:6-132): A/B-compare two
+    test directories of MSAs by total DALI score and mean Z per
+    accession.  Output format byte-identical to the reference on the
+    msta fixture, INCLUDING its quirks (duplicated z2 field, norm1/norm2
+    fields printing the raw scores, and the dead negative-score
+    clamping branches are semantics-preserved)."""
+    from reseek_tpu_torch.benchmarks.msa import dali_score, dali_z
+    from reseek_tpu_torch.io.reader import read_chains
+
+    chains = read_chains(args.input)
+    with open(args.accs) as f:
+        accs = [ln.strip() for ln in f if ln.strip()]
+    td1 = args.testdir.rstrip("/") + "/"
+    td2 = args.testdir2.rstrip("/") + "/"
+    out = open(args.output, "w") if args.output else None
+
+    def score_z(fn):
+        msa, _core, matched, maps = _msta_setup(fn, chains, args.core)
+        total = z_sum = 0.0
+        n = 0
+        for i in range(len(msa)):
+            for j in range(i + 1, len(msa)):
+                if i not in matched or j not in matched:
+                    continue
+                ci, cj = matched[i], matched[j]
+                both = (maps[i] >= 0) & (maps[j] >= 0)
+                s = dali_score(ci, cj, maps[i][both], maps[j][both])
+                total += s
+                z_sum += dali_z(s, len(ci), len(cj))
+                n += 1
+        return total, (z_sum / n if n else 0.0)
+
+    n1 = n2 = ntie = 0
+    sum1 = sum2 = sum_z1 = sum_z2 = 0.0
+    try:
+        for fn in accs:
+            s1, z1 = score_z(td1 + fn)
+            s2, z2 = score_z(td2 + fn)
+            sum_z1 += z1
+            sum_z2 += z2
+            if s1 == s2:
+                ntie += 1
+            elif s1 > s2:
+                n1 += 1
+            else:
+                n2 += 1
+            # dead clamping branches replicated (daliscore_msas2.cpp:
+            # 85-94: the first subtracts zero, the second zeroes s1)
+            if s1 < 0:
+                s1 = 0.0
+            if s2 < 0:
+                s2 = 0.0
+                s1 = 0.0
+            norm1 = s1 / (s1 + s2 + 1)
+            norm2 = s2 / (s1 + s2 + 1)
+            sum1 += norm1
+            sum2 += norm2
+            if out is not None:
+                out.write("aln=%s\tscore1=%.1f\tscore2=%.1f\tz1=%.1f"
+                          "\tz2=%.1f\tz2=%.1f\tnorm1=%.1f\tnorm2=%.1f\n"
+                          % (fn, s1, s2, z1, z2, z2, s1, s2))
+        n = len(accs)
+        if out is not None and n:
+            out.write("testdir1=%s\ttestdir2=%s\tn1better=%u"
+                      "\tn2better=%u\tntie=%u\tavg1=%.8f\tavg2=%.8f"
+                      "\tZ1=%.2f\tZ2=%.2f\n"
+                      % (td1, td2, n1, n2, ntie, sum1 / n, sum2 / n,
+                         sum_z1 / n, sum_z2 / n))
+    finally:
+        if out is not None:
+            out.close()
+    return 0
+
+
+def cmd_binner(args) -> int:
+    """-binner (src/binner.cpp:5-67): histogram a TSV column (optionally
+    log10) into N bins; writes histogram / cumulative / reverse-
+    cumulative TSVs and prints the QuartsFloat summary, byte-identical
+    to the reference (Binner semantics src/binner.h:123-165: clamp to
+    [min, max], bin = r*(BinCount-1), mids from BinSize=range/BinCount)."""
+
+    field = (args.fieldnr - 1) if args.fieldnr else 0
+    vals = []
+    with open(args.input) as f:
+        for line in f:
+            v = np.float32(line.rstrip("\n").split("\t")[field])
+            if args.log10:
+                v = (np.float32(-20.0) if v < 1e-20
+                     else np.float32(np.log10(v)))
+            vals.append(v)
+    v = np.array(vals, np.float32)
+    sv = np.sort(v)
+    n = len(sv)
+    total = np.float32(0.0)
+    for x in sv:
+        total += x
+    mean = np.float32(total / n) if n else np.float32(0)
+    # QuartsFloat::WriteMe(stderr) format (src/quarts.h:99-110; the
+    # StdDev field only goes to the log via LogMe)
+    print("Min=%.3g, LoQ=%.3g, Med=%.3g, HiQ=%.3g, Max=%.3g, Avg=%.3g"
+          % (sv[0], sv[n // 4], sv[n // 2], sv[3 * n // 4], sv[-1],
+             mean), file=sys.stderr)
+
+    lo = np.float32(args.minval) if args.minval is not None else sv[0]
+    hi = np.float32(args.maxval) if args.maxval is not None else sv[-1]
+    bins = args.bins
+    rng = np.float32(hi - lo)
+    clamped = np.clip(v, lo, hi)
+    idx = ((clamped - lo) / rng * np.float32(bins - 1)).astype(np.uint32)
+    counts = np.bincount(idx, minlength=bins)
+    size = np.float32(rng / np.float32(bins))
+    mids = [np.float32(lo + np.float32(b) * size + size / np.float32(2))
+            for b in range(bins)]
+
+    def write(path, ns, blank_zero):
+        if not path:
+            return
+        with open(path, "w") as f:
+            for b in range(bins):
+                nn = int(ns[b])
+                if blank_zero and nn == 0:
+                    f.write("%u\t%.4g\t\n" % (b, mids[b]))
+                else:
+                    f.write("%u\t%.4g\t%u\n" % (b, mids[b], nn))
+
+    write(args.output, counts, False)
+    write(args.accum, np.cumsum(counts), True)
+    write(args.accumrev, np.cumsum(counts[::-1])[::-1], True)
+    return 0
+
+
+def cmd_msa2cmp(args) -> int:
+    """-msa2cmp (src/msa2cmp.cpp:51-230): contact-map profile from an
+    MSA + structures — header, gap-mapped MSA rows, low-gap profile
+    rows, then the mean (lower triangle) / stddev (upper) distance
+    matrix over aligned pairs.  Float accumulation follows the
+    reference's QuartsFloat exactly (f32 sums over ASCENDING-sorted
+    distances, population stddev) so %.3g output is byte-identical."""
+    from reseek_tpu_torch.benchmarks.msa import read_msa_fasta
+    from reseek_tpu_torch.fp import fma32
+    from reseek_tpu_torch.io.reader import read_chains
+
+    msa = read_msa_fasta(args.msa)
+    chains = {c.label: c for c in read_chains(args.input)}
+    n_seq = len(msa)
+    col_to_pos, chain_of = [], []
+    for label, row in msa:
+        if label not in chains:
+            raise SystemExit(f"Label not found in chains >{label}")
+        c = chains[label]
+        ungapped = sum(1 for ch in row if ch not in "-.")
+        if ungapped != len(c):
+            raise SystemExit(f"Lengths disagree {ungapped}, {len(c)} "
+                             f"> {label}")
+        chain_of.append(c)
+        ctp, pos = [], 0
+        for ch in row:
+            if ch in "-.":
+                ctp.append(-1)
+            else:
+                ctp.append(pos)
+                pos += 1
+        col_to_pos.append(np.array(ctp, np.int64))
+
+    n_cols = len(msa[0][1])
+    max_gap = (args.maxgappct / 100.0 if args.maxgappct is not None
+               else 0.2)
+    prof_cols = []
+    for col in range(n_cols):
+        gaps = sum(1 for _l, row in msa if row[col] in "-.")
+        if gaps / n_seq <= max_gap:
+            prof_cols.append(col)
+    n_prof = len(prof_cols)
+    print("%u chains, %u / %u prof cols (%.1f%%)"
+          % (n_seq, n_prof, n_cols,
+             100.0 * n_prof / n_cols if n_cols else 0.0),
+          file=sys.stderr)
+
+    mean = np.zeros((n_prof, n_prof))
+    sdev = np.zeros((n_prof, n_prof))
+    for i1 in range(n_prof):
+        c1 = prof_cols[i1]
+        for i2 in range(i1 + 1, n_prof):
+            c2 = prof_cols[i2]
+            dists = []
+            for s in range(n_seq):
+                p1 = col_to_pos[s][c1]
+                p2 = col_to_pos[s][c2]
+                if p1 >= 0 and p2 >= 0:
+                    # PDBChain::GetDist float path as compiled with GCC
+                    # FMA contraction: dy*dy rounded, then two fused
+                    # multiply-adds, f32 sqrt (src/abcxyz.h:116-126;
+                    # same recipe as ops/lddt.py d2mat / fp.py)
+                    a = chain_of[s].coords[int(p1)]
+                    b = chain_of[s].coords[int(p2)]
+                    dx, dy, dz = a[0] - b[0], a[1] - b[1], a[2] - b[2]
+                    d2 = fma32(dz, dz, fma32(dx, dx,
+                                             np.float32(dy * dy)))
+                    dists.append(np.float32(np.sqrt(d2)))
+            if dists:
+                v = np.sort(np.array(dists, np.float32))
+                total = np.float32(0.0)
+                for x in v:
+                    total += x
+                m = np.float32(total / len(v))
+                sumd = np.float32(0.0)
+                for x in v:
+                    d = (x - m) * (x - m)
+                    sumd += d
+                mean[i1, i2] = mean[i2, i1] = float(m)
+                sdev[i1, i2] = sdev[i2, i1] = float(
+                    np.sqrt(np.float32(sumd / len(v))))
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        out.write("%u\t%u\t%u\n" % (n_seq, n_cols, n_prof))
+        for rows_cols in (range(n_cols), prof_cols):
+            for s in range(n_seq):
+                seq = chain_of[s].seq
+                out.write("%u\t%s\t" % (s, chain_of[s].label))
+                out.write("".join(
+                    "-" if col_to_pos[s][col] < 0
+                    else seq[col_to_pos[s][col]] for col in rows_cols))
+                out.write("\n")
+        for c1 in range(n_prof):
+            out.write("%u" % c1)
+            for c2 in range(n_prof):
+                if c2 == c1:
+                    out.write("\t*")
+                elif c1 > c2:
+                    out.write("\t%.3g" % mean[c1, c2])
+                else:
+                    out.write("\t%.3g" % sdev[c1, c2])
+            out.write("\n")
+    finally:
+        if args.output:
+            out.close()
+    return 0
+
+
+def cmd_mukmerfilter(args) -> int:
+    """-mukmerfilter: obsolete in the reference too
+    (src/mukmerfilter2.cpp:29-31 is `Die("Obsolete")`); kept for surface
+    parity.  The live MKF machinery is align/mkf.py + the search
+    drivers."""
+    raise SystemExit("Obsolete")
+
+
 def add_commands(sub) -> None:
     """Register the commands of this module on ``sub`` (the subparsers of
     ``__main__.build_parser``)."""
@@ -1608,3 +2675,190 @@ def add_commands(sub) -> None:
     p.add_argument("input", nargs="?", help="ignored (reference arg slot)")
     p.add_argument("--log")
     p.set_defaults(fn=cmd_test_xdrop)
+
+    p = sub.add_parser("daliscore-tsv",
+                       help="recompute DALI Z per row of a DALI TSV "
+                            "(reference -daliscore_tsv)")
+    p.add_argument("tsv")
+    p.add_argument("--input", required=True, help="structures")
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_daliscore_tsv)
+
+    p = sub.add_parser("musubstmx",
+                       help="derive + print the Mu substitution matrix "
+                            "C tables (reference -musubstmx)")
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_musubstmx)
+
+    p = sub.add_parser("mu-mapping",
+                       help="Mu letter -> sub-feature letters table "
+                            "(reference -mu_mapping)")
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_mu_mapping)
+
+    p = sub.add_parser("lddt-msa-foldmason",
+                       help="whole-MSA foldmason LDDT (reference "
+                            "-lddt_msa_foldmason)")
+    p.add_argument("msa")
+    p.add_argument("--input", required=True)
+    p.add_argument("--core", action="store_true")
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_lddt_msa_foldmason)
+
+    p = sub.add_parser("lddt-msas",
+                       help="batch MSA LDDT_mu (reference -lddt_msas)")
+    p.add_argument("accs")
+    p.add_argument("--input", required=True)
+    p.add_argument("--testdir", required=True)
+    p.add_argument("--core", action="store_true")
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_lddt_msas)
+
+    p = sub.add_parser("daliscore-msas",
+                       help="batch MSA DALI Z (reference -daliscore_msas)")
+    p.add_argument("accs")
+    p.add_argument("--input", required=True)
+    p.add_argument("--testdir", required=True)
+    p.add_argument("--core", action="store_true")
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_daliscore_msas)
+
+    p = sub.add_parser("float-feature-bins",
+                       help="train float-feature bin thresholds from "
+                            "aligned pairs (reference -float_feature_bins)")
+    p.add_argument("pairs", help="FASTA of gapped row pairs")
+    p.add_argument("--train-cal", required=True,
+                   help="structure file with the training chains")
+    p.add_argument("--feature", required=True)
+    p.add_argument("--alpha-size", type=int)
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_float_feature_bins)
+
+    p = sub.add_parser("sscluster",
+                       help="k-means conformation-letter training "
+                            "(reference -sscluster)")
+    p.add_argument("input")
+    p.add_argument("-k", type=int, required=True)
+    p.add_argument("-n", type=int, default=100000)
+    p.add_argument("--myss3", action="store_true")
+    p.add_argument("--randseed", type=int, default=1)
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_sscluster)
+
+    p = sub.add_parser("msta-score",
+                       help="MSA structure scores: LDDT_mu / DALI Z / "
+                            "Z15 per pair + foldmason LDDT (reference "
+                            "-msta_score)")
+    p.add_argument("msa")
+    p.add_argument("--input", required=True,
+                   help="structure file with the MSA's chains")
+    p.add_argument("--core", action="store_true")
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_msta_score)
+
+    p = sub.add_parser("msta-scores",
+                       help="batch MSA scoring over an accession list "
+                            "(reference -msta_scores)")
+    p.add_argument("accs")
+    p.add_argument("--input", required=True)
+    p.add_argument("--testdir", required=True)
+    p.add_argument("--core", action="store_true")
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_msta_scores)
+
+    for name, metric in (("lddt-msa", "lddt"), ("daliscore-msa", "dali")):
+        p = sub.add_parser(name,
+                           help=f"score an MSA's chain pairs ({metric})")
+        p.add_argument("msa", help="MSA FASTA (gapped rows)")
+        p.add_argument("--input", required=True,
+                       help="structures for the MSA's chains")
+        p.add_argument("--output")
+        p.add_argument("--core", action="store_true",
+                       help="score core columns only (<=10%%+1 gaps, "
+                            "no lowercase)")
+        p.set_defaults(fn=cmd_msa_score, metric=metric)
+
+    p = sub.add_parser("train-features",
+                       help="train per-feature log-odds matrices from "
+                            "trusted alignments")
+    p.add_argument("input", help="structure file with the training chains")
+    p.add_argument("--alns", required=True,
+                   help="FASTA of gapped row pairs (2 records = 1 "
+                        "trusted alignment)")
+    p.add_argument("--output", required=True)
+    p.add_argument("--features",
+                   help="comma list (default: the search feature set)")
+    p.set_defaults(fn=cmd_train_features)
+
+    p = sub.add_parser("feature-stats",
+                       help="feature registry + trained-matrix status")
+    p.add_argument("input", nargs="?", help="ignored (reference arg slot)")
+    p.set_defaults(fn=cmd_feature_stats)
+
+    p = sub.add_parser("lddt-bench",
+                       help="mean fast-LDDT over all MSA pairs")
+    p.add_argument("msa")
+    p.add_argument("--input", required=True)
+    p.add_argument("--missingtestseqok", action="store_true")
+    p.set_defaults(fn=cmd_lddt_bench)
+
+    p = sub.add_parser("msta-lddtmuw",
+                       help="per-column windowed LDDT (Jalview/PyMOL)")
+    p.add_argument("msa")
+    p.add_argument("--input", required=True)
+    p.add_argument("--window", type=int, default=2)
+    p.add_argument("--label")
+    p.add_argument("--lddtmuw-jalview", dest="lddtmuw_jalview")
+    p.add_argument("--lddtmuw-pymol", dest="lddtmuw_pymol")
+    p.set_defaults(fn=cmd_msta_lddtmuw)
+
+    p = sub.add_parser("mudex", help="Mu k-mer index diagnostics")
+    p.add_argument("input", help="Mu-letter FASTA")
+    p.add_argument("--log")
+    p.set_defaults(fn=cmd_mudex)
+
+    p = sub.add_parser("daliscore-msas2",
+                       help="A/B-compare two MSA test dirs by DALI Z")
+    p.add_argument("accs")
+    p.add_argument("--input", required=True)
+    p.add_argument("--testdir", required=True)
+    p.add_argument("--testdir2", required=True)
+    p.add_argument("--core", action="store_true")
+    p.add_argument("--missingtestseqok", action="store_true")
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_daliscore_msas2)
+
+    p = sub.add_parser("binner", help="histogram a TSV column")
+    p.add_argument("input")
+    p.add_argument("--fieldnr", type=int)
+    p.add_argument("--bins", type=int, default=32)
+    p.add_argument("--minval", type=float)
+    p.add_argument("--maxval", type=float)
+    p.add_argument("--log10", action="store_true")
+    p.add_argument("--output")
+    p.add_argument("--accum")
+    p.add_argument("--accumrev")
+    p.set_defaults(fn=cmd_binner)
+
+    p = sub.add_parser("msa2cmp",
+                       help="contact-map profile from MSA + structures")
+    p.add_argument("msa")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output")
+    p.add_argument("--maxgappct", type=float)
+    p.set_defaults(fn=cmd_msa2cmp)
+
+    p = sub.add_parser("mukmerfilter",
+                       help="obsolete (matches the reference)")
+    p.add_argument("input", nargs="?")
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_mukmerfilter)
+
+    p = sub.add_parser("msta-lddtmuw1",
+                       help="per-position windowed LDDT of one query")
+    p.add_argument("msa")
+    p.add_argument("--input", required=True)
+    p.add_argument("--label", required=True)
+    p.add_argument("--window", type=int, default=2)
+    p.add_argument("--output")
+    p.set_defaults(fn=cmd_msta_lddtmuw1)

@@ -272,7 +272,8 @@ def test_index_search(inputs, index, mode):
 def test_reference_spelling_rewrites_as_reseek_tpu():
     """Each of the port's commands spelt -<command> with single-dash
     options is rewritten as reseek_tpu rewrites it; values that start
-    with '-' pass untouched; a command the port lacks passes unrewritten."""
+    with '-' pass untouched; a name that is no command passes
+    unrewritten."""
     cases = [
         ["-search", "x.cal", "-sensitive", "-evalue", "-.5", "-output",
          "o.tsv", "-label1", "-foo", "-label2", "-bar", "-o", "y"],
@@ -281,6 +282,9 @@ def test_reference_spelling_rewrites_as_reseek_tpu():
         ["-prepare_query", "x.cal", "-minchainlength", "50", "-n", "3"],
         ["-test_xdrop", "-log", "x.log"],
         ["-create_foldseekdb", "x.cal", "-3di", "y.fa", "-output", "db"],
+        ["-lddt_msa", "x.afa", "-input", "y.cal", "-core"],
+        ["-msta_lddtmuw", "x.afa", "-input", "y.cal", "-lddtmuw_jalview",
+         "o.jv"],
         ["search", "-sensitive"],
     ]
     for argv in cases:
@@ -289,8 +293,12 @@ def test_reference_spelling_rewrites_as_reseek_tpu():
     assert port_cli._reference_style(
         ["-search", "x", "-evalue", "-.5"])[-1] == "-.5"
     assert port_cli._reference_style(["-lddt_msa", "x.afa"]) == [
-        "-lddt_msa", "x.afa"]
-    assert len(port_cli.REFERENCE_COMMANDS) == 59
+        "lddt-msa", "x.afa"]
+    assert port_cli._reference_style(["-no_such_cmd", "-x"]) == [
+        "-no_such_cmd", "-x"]
+    names = tpu_cli.build_parser()._subparsers._group_actions[0].choices
+    assert len(names) == 59
+    assert all(port_cli._known_options(c) is not None for c in names)
 
 
 def test_reference_spelling_runs(inputs, tmp_path):

@@ -20,6 +20,8 @@ ROOT = Path(__file__).resolve().parent.parent
 Q100 = str(ROOT / "tests" / "golden" / "q100.cal")
 SEPQ = str(ROOT / "tests" / "golden" / "sepq_set.cal")
 LOOKUP = str(ROOT / "tests" / "golden" / "sepq_set.lookup")
+MSTA = str(ROOT / "tests" / "golden" / "msta.afa")
+MSTA_SET = str(ROOT / "tests" / "golden" / "msta_set.cal")
 # four a.1.11.1 chains, two a.1.24.1, two singletons: true and false pairs
 SEPQ8 = [0, 9, 10, 11, 12, 13, 26, 27]
 COLUMNS = "query+target+qlo+qhi+tlo+thi+evalue+cigar"
@@ -102,6 +104,11 @@ rc = rc or main(["search", {rsdx!r}, "--sensitive", "-o", {rsdx_out!r}]
 with open({pair_out!r}, "w") as f, contextlib.redirect_stdout(f):
     rc = rc or main(["alignpair", {q8!r}, "--input2", {s8!r}, "--aln",
                      {pair_aln!r}])
+with open({msta_out!r}, "w") as f, contextlib.redirect_stdout(f):
+    rc = rc or main(["msta-score", {msta!r}, "--input", {msta_set!r}])
+rc = rc or main(["train-features", {msta_set!r}, "--alns", {pairs!r},
+                 "--output", {train_out!r}])
+import reseek_tpu_torch.search.batched
 loaded = [k for k in sys.modules if k == "reseek_tpu"
           or k.startswith("reseek_tpu.")]
 assert not loaded, loaded
@@ -111,13 +118,21 @@ sys.exit(rc)
 
 
 def test_cli_runs_with_reseek_tpu_and_jax_blocked(tmp_path, capsys):
-    """Every module of the port imports, and the CLI's self-search, --db
-    and --fast --db, scop40bench, calibrate2, convert --index and a
-    search of its .rsdx, and alignpair run on the CPU, with jax and
+    """Every module of the port imports (the legacy engine's
+    search/batched.py, benchmarks/msa.py and benchmarks/train.py among
+    them), and the CLI's self-search, --db and --fast --db, scop40bench,
+    calibrate2, convert --index and a search of its .rsdx, alignpair,
+    msta-score and train-features run on the CPU, with jax and
     reseek_tpu refused; the outputs equal reseek_tpu's."""
     paths = {k: str(tmp_path / f"{k}.tsv")
              for k in ("self_out", "db_out", "fast_out", "bench_out",
-                       "cal2_out", "rsdx_out", "pair_out", "pair_aln")}
+                       "cal2_out", "rsdx_out", "pair_out", "pair_aln",
+                       "msta_out", "train_out")}
+    pairs = tmp_path / "pairs.fa"
+    rows = [r.partition("\n") for r in Path(MSTA).read_text().split(">")[1:]]
+    pairs.write_text("".join(f">{lab.strip()}\n{seq}" for i, j in
+                             ((0, 1), (0, 2), (1, 2))
+                             for lab, _, seq in (rows[i], rows[j])))
     q8 = str(tmp_path / "q8.cal")
     s8 = str(tmp_path / "s8.cal")
     q8_bca = str(tmp_path / "q8.bca")
@@ -125,7 +140,8 @@ def test_cli_runs_with_reseek_tpu_and_jax_blocked(tmp_path, capsys):
     code = _BLOCKED_RUN.format(q100=Q100, q8=q8, columns=COLUMNS,
                                sepq=SEPQ, sepq_idx=SEPQ8, s8=s8,
                                lookup=LOOKUP, paths=paths, q8_bca=q8_bca,
-                               rsdx=rsdx, **paths)
+                               rsdx=rsdx, msta=MSTA, msta_set=MSTA_SET,
+                               pairs=str(pairs), **paths)
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                           env=env, capture_output=True, text=True,
@@ -164,3 +180,12 @@ def test_cli_runs_with_reseek_tpu_and_jax_blocked(tmp_path, capsys):
                          str(aln)]) == 0
     assert Path(paths["pair_out"]).read_text() == capsys.readouterr().out
     assert Path(paths["pair_aln"]).read_text() == aln.read_text()
+    capsys.readouterr()
+    assert tpu_cli.main(["msta-score", MSTA, "--input", MSTA_SET]) == 0
+    want = capsys.readouterr().out
+    assert Path(paths["msta_out"]).read_text() == want and want
+    lo = tmp_path / "tpu_lo.tsv"
+    assert tpu_cli.main(["train-features", MSTA_SET, "--alns", str(pairs),
+                         "--output", str(lo)]) == 0
+    assert Path(paths["train_out"]).read_text() == lo.read_text()
+    assert lo.read_text().startswith("FEATURE\t")
