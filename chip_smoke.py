@@ -8,10 +8,12 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --stage1    # phases 0-1, the replica's stage 1
     python3 chip_smoke.py --walk      # phases 0-1, the walk alone
     python3 chip_smoke.py --sweep     # phases 0-1, the float sweep alone
+    python3 chip_smoke.py --gcol      # phases 0-1, sw_align short vs long
     python3 chip_smoke.py --sass [NAME]   # phases 0-1, kernels' SASS opcodes
     python3 chip_smoke.py --bench-cmds    # phases 0-1, then phase 10
     python3 chip_smoke.py --io-cmds       # phases 0-1, then phase 11
     python3 chip_smoke.py --msa-cmds      # phases 0-1, then phase 12
+    python3 chip_smoke.py --long          # phases 0-1, then phase 13
 
 Phases, in order; any failure exits non-zero and prints no result:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -94,13 +96,28 @@ Phases, in order; any failure exits non-zero and prints no result:
      bit-equal to the host's, batched_self_search equal pair for pair to
      the host PairAligner, the five stage kernels launched and the float
      sweep not; then timed on the 1,024-chain replica, every chain below
-     the MKF length with its self hit.
+     the MKF length with its self hit;
+ 13. --verysensitive past the kernels' column limits (phase_long): chains
+     of 8,000 and 12,000 residues made of q100 chains end to end, and the
+     12,000-residue one with 0.25 A noise (seed 17), beside the 8
+     shortest q100 chains.  Each long-column variant at a shape the main
+     path gives it (sw_align and sw_score_profiles at the 8,000 x 12,000
+     pairs' 2 x 8,192 x 16,384, several passes of row tiles; the Mu
+     filter at the legacy bucket, 2 x 12,032 x 12,032; LDDT at 2 x
+     12,000) against its plain version (bit-equal; LDDT within 1e-6),
+     and the walk on that traceback; the device self-reversal scores
+     equal to the host's; the self-search and the 12,000-residue query
+     against the 11 chains byte-equal to the host engine, every long
+     chain with its self hit; the legacy engine (sensitive filters, MKF
+     routing off) on the two long chains and the 8 short ones equal to
+     the host PairAligner pair for pair.
 Each kernel must have been launched by the run of the phase that KERNELS
 names for it (counts set to 0 just before that run, read just after);
 the query, -fast, mesh and phase 11's searches must launch every
 stage-1/3 kernel too, entry()'s fn the score-only kernel, and phase 12's
 legacy engine the kernels of its four stages (mu_sweep, sw_score,
-sw_align, walk_traceback, lddt).
+sw_align, walk_traceback, lddt); phase 13's runs the long variants that
+LONG_KERNELS names.
 The last two lines are a JSON object of per-kernel results (times, the
 bound the card could reach at the timed shape and what binds it) and
 {"ok": true, "device": {...}}.  Imports neither JAX nor reseek_tpu: the
@@ -166,6 +183,24 @@ KERNELS = {
 }
 # the kernels that every pair-list search (query-vs-DB, -fast) launches
 SEARCH_KERNELS = ("mu_sweep", "sw_align", "walk_traceback", "lddt")
+# phase 13: the long chains' lengths (residues), the gap between their
+# pieces along x (A; clear of LDDT's 15 A radius), and the mode of the
+# searches
+LONG_LENGTHS = (8000, 12000)
+LONG_GAP = 50.0
+LONG_MODE = "verysensitive"
+# long-column variant -> (CUDA source, the TPU kernel it replaces, the
+# run of phase 13 that must launch it)
+LONG_KERNELS = {
+    "sw_align_long": ("reseek_tpu_torch/csrc/sw_align.cu",
+                      "reseek_tpu/ops/sw_pallas.py:252", "search"),
+    "sw_score_long": ("reseek_tpu_torch/csrc/sw_align.cu",
+                      "reseek_tpu/ops/sw_pallas.py:166", "self_rev"),
+    "lddt_long": ("reseek_tpu_torch/csrc/postalign.cu",
+                  "reseek_tpu/ops/postalign_jax.py:79", "search"),
+    "mu_sweep_long": ("reseek_tpu_torch/csrc/mu_wavefront.cu",
+                      "reseek_tpu/ops/sw_sweep.py:327", "legacy"),
+}
 # the native host code, built with g++ at first use (module of the port,
 # its loader _lib)
 NATIVE = ("encoder.native", "align.mkf_native", "ops.lddt", "ops.sw_native",
@@ -484,8 +519,11 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
                values={"chain_bound_ms": int(walk[2].max())
                        * SMEM_LATENCY_CYCLES / sm_clock_hz() * 1e3})
 
+        # LDDT's columns as the engine caps them: the chunk's largest
+        # shorter-chain length
+        m = pipe.m_cap(chunk)
         cq, ct, valid, n_m = aligned_coords(walk[3], bi, bj, ia, ib,
-                                            pipe.coords, min(lea, leb))
+                                            pipe.coords, m)
         lddt, risky = lddt_batch(cq, ct, valid, n_m)
         rlddt, rrisky = lddt_batch_ref(cq, ct, valid, n_m)
         err = (lddt - rlddt).abs()[~rrisky].max() if bool(
@@ -495,8 +533,8 @@ def phase_kernels(pipe, survivors: np.ndarray) -> dict:
         nm = n_m.long()
         # the bound counts each unordered column pair once, as the
         # function needs (the reference's upper triangle)
-        record("lddt", err, int(n_m.sum()) * min(lea, leb),
-               (nb, min(lea, leb)), lambda: lddt_batch(cq, ct, valid, n_m),
+        record("lddt", err, int(n_m.sum()) * m,
+               (nb, m), lambda: lddt_batch(cq, ct, valid, n_m),
                lambda: lddt_batch_ref(cq, ct, valid, n_m), 5,
                8 * cq.numel() + valid.numel() + 4 * nb + 5 * nb,
                int((nm * (nm - 1) // 2).sum()) * LDDT_PAIR_OPS,
@@ -962,6 +1000,46 @@ def phase_sweep_alone(pipe, survivors, reps: int = 5) -> None:
     print(f"[p1] float sweep at {(len(ia), le, le)}, "
           f"{'fed S' if fed_s else 'fed the profiles'}: "
           + json.dumps({k: [round(x, 4) for x in v] for k, v in got.items()}))
+
+
+def phase_gcol(pipe, survivors, reps: int = 20) -> None:
+    """sw_align at the largest q100 stage-3 chunk and sw_score_profiles at
+    the largest self-reversal batch (phase 2's shapes), each by its
+    shared-memory kernel and by its long variant (the column words in
+    device memory, forced by a column limit of 0), in turns: short, long,
+    long, short.  The two must agree bit for bit."""
+    from reseek_tpu_torch.ops import sw_align as swm
+    p = pipe.params
+    go, ge = float(p.gap_open), float(p.gap_ext)
+    lea, leb, _chunk, ia, ib = max(pipe.stage3_plan(survivors),
+                                   key=lambda c: len(c[3]) * c[0] * c[1])
+    own = pipe.order[:pipe.dev_end]
+    le, _rows, ra, rb = max(pipe.stage2_plan(np.stack([own, own], 1)),
+                            key=lambda c: len(c[2]) * c[0] * c[0])
+    runs = {
+        f"sw_align {(len(ia), lea, leb)}": functools.partial(
+            swm.sw_align, pipe.prof, ia, ib, pipe.table, lea, leb, go, ge),
+        f"sw_score {(len(ra), le, le)}": functools.partial(
+            swm.sw_score_profiles, pipe.prof, pipe.prof_rev, ra, rb,
+            pipe.table, le, le, go, ge)}
+    limit = swm.MAX_LB
+    for name, fn in runs.items():
+        got, ms = {}, {"short": [], "long": []}
+        for kind in ("short", "long", "long", "short"):
+            swm.MAX_LB = 0 if kind == "long" else limit
+            try:
+                got[kind] = fn()
+                ms[kind].append(time_ms(fn, reps))
+            finally:
+                swm.MAX_LB = limit
+        same = all(torch.equal(x, y) for x, y in zip(
+            *(v if isinstance(v, tuple) else (v,) for v in got.values())))
+        if not same:
+            fail(f"{name}: the long variant differs from the short kernel")
+        ratio = statistics.mean(ms["long"]) / statistics.mean(ms["short"])
+        print(f"[g] {name}: short {[round(x, 4) for x in ms['short']]} ms, "
+              f"long {[round(x, 4) for x in ms['long']]} ms, long / short "
+              f"{ratio:.4f}; bit-equal")
 
 
 def phase_stage1(chains, reps: int = 7) -> None:
@@ -1818,6 +1896,38 @@ def phase_msa_cmds() -> None:
                   f"byte-equal to {want}")
 
 
+def legacy_vs_host(ecs, params, got, routed=()) -> None:
+    """Fail unless batched_self_search's results ``got`` on ``ecs`` are
+    the host PairAligner's hits (E-value <= 10) pair for pair, with its
+    path, positions and float32 forward score, LDDT and TS; the pairs in
+    ``routed`` (skipped by skip_pair) are not compared."""
+    from reseek_tpu_torch.align.pipeline import PairAligner
+    n = len(ecs)
+    results = {(r.query, r.target): r for r in got}
+    pa = PairAligner(params)
+    kept = [(i, j) for i in range(n) for j in range(i, n)
+            if (i, j) not in routed]
+    with ThreadPoolExecutor(os.cpu_count() or 2) as tp:
+        host = list(tp.map(lambda ij: pa.align(ecs[ij[0]], ecs[ij[1]]),
+                           kept))
+    n_checked = 0
+    for (i, j), res in zip(kept, host):
+        key = (ecs[i].label, ecs[j].label)
+        if res is None or not res.path or res.evalue > 10.0:
+            if key in results:
+                fail(f"legacy engine: {key} returned, not by the host")
+            continue
+        r = results.get(key)
+        if (r is None or r.path != res.path or (r.lo_a, r.lo_b) != (
+                res.lo_a, res.lo_b) or any(
+                np.float32(getattr(r, f)) != np.float32(getattr(res, f))
+                for f in ("fwd_score", "lddt", "ts"))):
+            fail(f"legacy engine: {key} differs from the host PairAligner")
+        n_checked += 1
+    if n_checked != len(got):
+        fail(f"legacy engine: {len(got)} results, {n_checked} host hits")
+
+
 def phase_legacy(chains, db) -> dict:
     """Phase 12, second part: the legacy square-bucket engine
     (reseek_tpu_torch/search/batched.py) on the card.  On the q100 chains
@@ -1834,7 +1944,7 @@ def phase_legacy(chains, db) -> dict:
     chain below the MKF length has its self hit.  Returns the launch
     counts of the q100 run."""
     from reseek_tpu_torch.align.mkf import should_use_mkf
-    from reseek_tpu_torch.align.pipeline import PairAligner, self_rev_score
+    from reseek_tpu_torch.align.pipeline import self_rev_score
     from reseek_tpu_torch.constants import DSSParams
     from reseek_tpu_torch.encoder.dss import encode_chain
     from reseek_tpu_torch.ops.postalign import (lddt_batch, lddt_batch_ref,
@@ -1888,30 +1998,7 @@ def phase_legacy(chains, db) -> dict:
                       "lddt"], "the legacy engine on q100")
     if launched.counts["sw_score_sweep"]:
         fail("the legacy engine launched the float sweep")
-    results = {(r.query, r.target): r for r in got}
-    pa = PairAligner(params)
-    routed = set(skipped)
-    kept = [(i, j) for i in range(n) for j in range(i, n)
-            if (i, j) not in routed]
-    with ThreadPoolExecutor(os.cpu_count() or 2) as tp:
-        host = list(tp.map(lambda ij: pa.align(ecs[ij[0]], ecs[ij[1]]),
-                           kept))
-    n_checked = 0
-    for (i, j), res in zip(kept, host):
-        key = (ecs[i].label, ecs[j].label)
-        if res is None or not res.path or res.evalue > 10.0:
-            if key in results:
-                fail(f"legacy engine: {key} returned, not by the host")
-            continue
-        r = results.get(key)
-        if (r is None or r.path != res.path or (r.lo_a, r.lo_b) != (
-                res.lo_a, res.lo_b) or any(
-                np.float32(getattr(r, f)) != np.float32(getattr(res, f))
-                for f in ("fwd_score", "lddt", "ts"))):
-            fail(f"legacy engine: {key} differs from the host PairAligner")
-        n_checked += 1
-    if n_checked != len(got):
-        fail(f"legacy engine: {len(got)} results, {n_checked} host hits")
+    legacy_vs_host(ecs, params, got, set(skipped))
     print(f"[12] legacy batched_self_search on q100: {secs:.2f} s, "
           f"{len(got)} pairs equal to the host PairAligner (path, lo, "
           f"float32 fwd, LDDT, TS), {len(skipped)} MKF pairs skipped; "
@@ -2020,6 +2107,322 @@ def phase_legacy(chains, db) -> dict:
     return counts
 
 
+def long_chains(base):
+    """Phase 13's long chains, made from ``base`` (the q100 chains) alone:
+    the chains end to end, each piece translated LONG_GAP clear of the
+    last along x, cut at each of LONG_LENGTHS residues (labels long<n>),
+    and a copy of the longest with replica()'s noise (seed REPLICA_SEED,
+    REPLICA_NOISE A; label long<n>/r1)."""
+    from reseek_tpu_torch.chain import Chain
+    out = []
+    for n in LONG_LENGTHS:
+        seqs, xyz, end, k = [], [], None, 0
+        while sum(map(len, seqs)) < n:
+            c = base[k % len(base)]
+            k += 1
+            x = c.coords.astype(np.float64)
+            if end is not None:
+                x[:, 0] += end + LONG_GAP - x[:, 0].min()
+            end = x[:, 0].max()
+            seqs.append(c.seq)
+            xyz.append(x)
+        out.append(Chain(f"long{n}", "".join(seqs)[:n],
+                         np.concatenate(xyz)[:n]))
+    top = out[-1]
+    rng = np.random.default_rng(REPLICA_SEED)
+    noise = rng.normal(0, REPLICA_NOISE, top.coords.shape).astype(np.float32)
+    out.append(Chain(top.label + "/r1", top.seq, top.coords + noise))
+    return out
+
+
+def once_ms(fn):
+    """(fn(), its milliseconds): CUDA events around one call, for the
+    plain versions at phase 13's shapes, which run once."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
+    """Phase 13, kernel gates: each long-column variant against its plain
+    version on the card at a shape the main path gives it; the score
+    kernels and the walk bit-equal, LDDT within LDDT_TOL.  sw_align,
+    sw_score_profiles and the walk on the pairs (a_orig[k], b_orig[k]) at
+    the stage-3 shape of the first (the engine's edge of a_orig[0]'s
+    chain by its widest edge: 8,192 x 16,384 for the 8,000 x 12,000
+    pair, several passes of row tiles, each handing its bottom row to the
+    next through device memory); the Mu filter on the same pairs at the
+    legacy engine's bucket of the longest chain (its length rounded up to
+    256, square); LDDT on two pairs of M = 12,000 columns (the longest
+    chain against its noisy copy, and against a copy with 0.5 A noise
+    over 11,000 valid columns).  The bounds count the cells up to the
+    chains' ends.  Each kernel timed (CUDA events behind the device spin,
+    warm), each plain version once.  Returns {variant: {max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, shape}}."""
+    from reseek_tpu_torch.ops.postalign import (lddt_batch, lddt_batch_ref,
+                                                lddt_cluster,
+                                                walk_traceback_batch,
+                                                walk_traceback_batch_ref)
+    from reseek_tpu_torch.ops.sw_align import (sw_align, sw_align_ref,
+                                               sw_score_profiles,
+                                               sw_score_profiles_ref)
+    from reseek_tpu_torch.ops.sw_sweep import (mu_lane_bits, mu_sw_scores,
+                                               mu_sw_scores_ref)
+    p = pipe.params
+    res = {}
+
+    def gate(name, got_fn, plain_fn, equal, shape, nbytes, ops, reps=3):
+        """Run the kernel (its variant counted), then the plain version
+        once; fail unless ``equal(got, want)`` (-> max_abs_err or None);
+        time the kernel and keep its bound."""
+        with Launches() as n:
+            got = got_fn()
+            torch.cuda.synchronize()
+        n.require([name], f"the {name} gate")
+        want, plain_ms = once_ms(plain_fn)
+        err = equal(got, want)
+        if err is None:
+            fail(f"{name} != plain at {shape}")
+        b, by = bound(nbytes, ops)
+        res[name] = {"max_abs_err": float(err), "ms": time_ms(got_fn, reps),
+                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "shape": shape}
+        r = res[name]
+        print(f"[13] {name} at {shape}: equal to the plain version (err "
+              f"{r['max_abs_err']:.3g}); kernel {r['ms']:.3f} ms, plain "
+              f"{plain_ms:.1f} ms (once), bound {b:.4f} ms ({by})")
+        return got
+
+    def same(got, want):
+        return 0.0 if all(torch.equal(x, y) for x, y in zip(got, want)) \
+            else None
+
+    go, ge = float(p.gap_open), float(p.gap_ext)
+    ia = pipe._sorted_idx(np.asarray(a_orig))
+    ib = pipe._sorted_idx(np.asarray(b_orig))
+    nb, lb = len(a_orig), int(pipe.prof.shape[2])
+    la = int(pipe._edge_of(pipe.lens[a_orig[:1]])[0])
+    nf = pipe.prof.shape[1]
+    cells = nb * la * lb
+    # the cells up to the chains' ends (no other cell can raise the best)
+    len_a, len_b = pipe.lens[a_orig], pipe.lens[b_orig]
+    real = int((np.minimum(len_a, la) * np.minimum(len_b, lb)).sum())
+    tab = 4 * pipe.table.blocks.numel()
+    args = (pipe.prof, ia, ib, pipe.table, la, lb, go, ge)
+    best, bi, bj, tb = gate(
+        "sw_align_long", lambda: sw_align(*args), lambda: sw_align_ref(*args),
+        same, (nb, la, lb), nb * nf * (la + lb) + tab + cells // 2 + 12 * nb,
+        real * CELL_OPS["sw_align"])
+    print(f"[13] sw_align_long / sw_score_long: {tb.shape[1]} row tiles of "
+          f"{32 * 2 * tb.shape[4]} rows a pair; cells to the chains' ends "
+          f"{real}")
+
+    def walk_fn():
+        return walk_traceback_batch(tb, best, bi, bj, la)
+
+    walk = walk_fn()
+    rwalk, walk_plain_ms = once_ms(
+        lambda: walk_traceback_batch_ref(tb, best, bi, bj, la))
+    if same(walk, rwalk) is None:
+        fail(f"walk_traceback != plain at {(nb, la, lb)}")
+    print(f"[13] walk_traceback at {(nb, la, lb)}: equal to the plain "
+          f"version (paths of {walk[2].tolist()} steps); kernel "
+          f"{time_ms(walk_fn, 5):.3f} ms, plain {walk_plain_ms:.1f} ms "
+          f"(once)")
+    sargs = (pipe.prof, pipe.prof, ia, ib, pipe.table, la, lb, go, ge)
+    score = gate(
+        "sw_score_long", lambda: sw_score_profiles(*sargs),
+        lambda: sw_score_profiles_ref(*sargs),
+        lambda g, w: 0.0 if torch.equal(g, w) else None, (nb, la, lb),
+        nb * nf * (la + lb) + tab + 4 * nb, real * CELL_OPS["sw_score"])
+    if not torch.equal(score, best):
+        fail("sw_score_long differs from sw_align_long's best")
+
+    o, e = -float(p.para_mu_gap_open), -float(p.para_mu_gap_ext)
+    mt = pipe.mu_table
+    # the legacy engine's bucket past its last (DeviceDB): rounded up to 256
+    le = -(-int(pipe.lens.max()) // 256) * 256
+    a, b = pipe.mu[ia, :le], pipe.mu[ib, :le]
+    bits = mu_lane_bits(le, le, mt.smax, mt.smin, int(o), int(e))
+    # the kernel sweeps each pair's rows and columns to its last letter
+    ends = [int((x != 36).cumsum(1).argmax(1)[k]) + 1
+            for x in (a, b) for k in range(nb)]
+    mu_real = sum(ends[k] * ends[nb + k] for k in range(nb))
+    gate("mu_sweep_long", lambda: mu_sw_scores(a, b, mt, o, e),
+         lambda: mu_sw_scores_ref(a, b, mt.mumx, o, e),
+         lambda g, w: 0.0 if torch.equal(g, w) else None,
+         (nb, le, le), a.numel() + b.numel() + 2 * mt.tab16.numel() + 4 * nb,
+         mu_real * CELL_OPS["mu_sweep"])
+    print(f"[13] mu_sweep_long lanes: int{bits}; cells to the letters' "
+          f"ends {mu_real}")
+
+    top, noisy = longs[-2], longs[-1]
+    m = len(top)
+    rng = np.random.default_rng(REPLICA_SEED + 1)
+    other = top.coords + rng.normal(0, 2 * REPLICA_NOISE,
+                                    top.coords.shape).astype(np.float32)
+    cq = torch.tensor(np.stack([top.coords, top.coords]), device=DEVICE)
+    ct = torch.tensor(np.stack([noisy.coords, other]), device=DEVICE)
+    valid = torch.ones((2, m), dtype=torch.bool, device=DEVICE)
+    valid[1, m * 11 // 12:] = False
+    n_m = valid.sum(1).to(torch.int32)
+    nm = n_m.long()
+
+    def lddt_equal(got, want):
+        err = float((got[0] - want[0]).abs().max())
+        return err if torch.equal(got[1], want[1]) and err <= LDDT_TOL \
+            else None
+
+    got = gate("lddt_long", lambda: lddt_batch(cq, ct, valid, n_m),
+               lambda: lddt_batch_ref(cq, ct, valid, n_m), lddt_equal,
+               (2, m), 8 * cq.numel() + valid.numel() + 4 * 2 + 5 * 2,
+               int((nm * (nm - 1) // 2).sum()) * LDDT_PAIR_OPS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"[13] lddt_long: values {got[0].tolist()}, risky "
+          f"{got[1].tolist()}, {lddt_cluster(2, m, sms)} blocks a pair")
+    return res
+
+
+def phase_long(base):
+    """Phase 13: --verysensitive past the kernels' column limits, on long
+    chains made from q100 (long_chains) beside the 8 shortest q100
+    chains.  The kernel gates (phase_long_kernels); the self-search and a
+    query search of the longest chain through the port's entry points
+    (engine="device", device="cuda") byte-equal to the host engine, every
+    long chain with its self hit; the device self-reversal scores equal to
+    the host's; the legacy engine (sensitive filters, MKF routing off: the
+    Mu filter runs) equal to the host PairAligner pair for pair.  Each run
+    must launch its long variants (LONG_KERNELS).  Walls and peak device
+    memory.  Returns (kernel results, {run: launch counts})."""
+    import dataclasses
+    from reseek_tpu_torch.align.output import parse_columns
+    from reseek_tpu_torch.align.pipeline import self_rev_score
+    from reseek_tpu_torch.constants import DSSParams
+    from reseek_tpu_torch.search import driver as port
+    from reseek_tpu_torch.search.batched import (BatchedEngine, DeviceDB,
+                                                 batched_self_search)
+    from reseek_tpu_torch.search.engine import DeviceSelfSearch
+    from reseek_tpu_torch.search.host import SearchOptions, _encode_all
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    longs = long_chains(base)
+    short = sorted(base, key=len)[:8]
+    chains = short[:4] + longs + short[4:]
+    labels = [c.label for c in longs]
+    print(f"[13] long chains {dict(zip(labels, map(len, longs)))} from "
+          f"q100, beside the 8 shortest q100 chains")
+    params = DSSParams.create(LONG_MODE)
+    ecs = _encode_all(chains, params, with_self_rev=False)
+    pipe = DeviceSelfSearch(ecs, params, device=DEVICE)
+    print(f"[13] engine edges {pipe.edges}")
+    at = {c.label: i for i, c in enumerate(chains)}
+    res = phase_long_kernels(pipe, [at[labels[0]], at[labels[2]]],
+                             [at[labels[1]]] * 2, longs)
+    launches = {}
+
+    t0 = time.perf_counter()
+    with Launches() as launched:
+        got = pipe.self_rev_scores_device()
+    secs = time.perf_counter() - t0
+    want = np.float32([self_rev_score(ec, params) for ec in ecs])
+    if not np.array_equal(got, want):
+        fail(f"long self-rev: {int((got != want).sum())} chains differ "
+             "from the host")
+    launched.require(["sw_score_long"], "the long chains' device self-rev")
+    launches["self_rev"] = launched.counts
+    print(f"[13] device self-rev of the {len(ecs)} chains equals the host: "
+          f"{secs:.2f} s; launches {launched.counts}")
+
+    opts = SearchOptions(columns=parse_columns(COLUMNS), mode=LONG_MODE,
+                         max_evalue=float("inf"))
+    dev = {"engine": "device", "device": DEVICE}
+
+    def run(fn, *a, **kw):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        fn(*a, params, opts, out, **kw)
+        torch.cuda.synchronize()
+        return out.getvalue(), time.perf_counter() - t0
+
+    want, host_s = run(port.self_search, chains, engine="host")
+    with Launches() as launched:
+        got, dev_s = run(port.self_search, chains, **dev)
+    if got != want:
+        fail("long --verysensitive self-search differs from the host")
+    rows = [line.split("\t") for line in got.splitlines()]
+    selfs = {r[0] for r in rows if r[0] == r[1]}
+    if not set(labels) <= selfs:
+        fail(f"long self-search: {sorted(set(labels) - selfs)} lack a "
+             "self hit")
+    launched.require(["sw_align_long", "lddt_long", "walk_traceback"],
+                     "the long self-search")
+    launches["search"] = launched.counts
+    print(f"[13] --verysensitive self-search of {len(chains)} chains: "
+          f"{len(rows)} rows byte-equal to the host, every long chain's "
+          f"self hit; device {dev_s:.2f} s, host {host_s:.2f} s; launches "
+          f"{launched.counts}")
+    query = [longs[1]]
+    want, host_s = run(port.query_search, query, chains, engine="host")
+    with Launches() as launched:
+        got, dev_s = run(port.query_search, query, chains, **dev)
+    if got != want or not got:
+        fail("long --verysensitive query search differs from the host")
+    launched.require(["sw_align_long", "lddt_long"], "the long query")
+    print(f"[13] --verysensitive query {labels[1]} x {len(chains)} chains: "
+          f"{len(got.splitlines())} rows byte-equal to the host; device "
+          f"{dev_s:.2f} s, host {host_s:.2f} s; launches {launched.counts}")
+
+    lparams = dataclasses.replace(DSSParams.create("sensitive"),
+                                  mkfl=params.mkfl)
+    lchains = short[:4] + longs[:2] + short[4:]
+    lecs = _encode_all(lchains, lparams, with_self_rev=False)
+    t0 = time.perf_counter()
+    with Launches() as launched:
+        ldb = DeviceDB(lecs, lparams, with_rev_profiles=True, device=DEVICE)
+        srs = BatchedEngine(ldb).self_rev_scores()
+        host_srs = np.float32([self_rev_score(ec, lparams) for ec in lecs])
+        if not np.array_equal(srs, host_srs):
+            fail("legacy self_rev_scores of the long chains differ from "
+                 "the host")
+        for ec, s in zip(lecs, host_srs):
+            ec.self_rev_score = float(s)
+        t1 = time.perf_counter()
+        got = batched_self_search(lecs, lparams, db=ldb)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+    launched.require(["mu_sweep_long", "sw_score_long", "sw_align_long",
+                      "lddt_long"], "the legacy engine on the long chains")
+    launches["legacy"] = launched.counts
+    legacy_vs_host(lecs, lparams, got)
+    print(f"[13] legacy engine (sensitive, MKF off) on {len(lchains)} chains"
+          f" (buckets {ldb.buckets}): self_rev_scores bit-equal to the "
+          f"host, batched_self_search {secs:.2f} s, {len(got)} pairs equal "
+          f"to the host PairAligner; DeviceDB + self-rev {t1 - t0:.2f} s; "
+          f"stages {json.dumps(ldb.stats)}; launches {launched.counts}")
+    print(f"[13] phase 13: {time.perf_counter() - t_phase:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return res, launches
+
+
+def long_entries(res: dict, launches: dict) -> list:
+    """The ``kernels`` line's entries of the long-column variants: phase
+    13's gate results, the launches of the run LONG_KERNELS names and of
+    the legacy run."""
+    return [{"name": k, "route": "cuda", "source": src, "replaces": rep,
+             "launches": launches[run][k],
+             "max_abs_err": res[k]["max_abs_err"], "ms": res[k]["ms"],
+             "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound_ms"],
+             "bound_by": res[k]["bound_by"], "library_ms": None,
+             "shape": res[k]["shape"],
+             "legacy_launches": launches["legacy"][k]}
+            for k, (src, rep, run) in LONG_KERNELS.items()]
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -2068,6 +2471,12 @@ def main() -> int:
         phase_msa_cmds()
         phase_legacy(chains, replica(chains, REPLICA_CHAINS))
         return 0
+    if sys.argv[1:] == ["--long"]:
+        # phases 0-1, then the long chains alone
+        long_res, long_launches = phase_long(chains)
+        print(card)
+        print(json.dumps({"kernels": long_entries(long_res, long_launches)}))
+        return 0
     if sys.argv[1:] == ["--stage1"]:
         # phases 0-1, then the replica's stage 1 alone (to compare two
         # versions of the Mu filter in one call)
@@ -2085,6 +2494,11 @@ def main() -> int:
     if sys.argv[1:] == ["--sweep"]:
         # phases 0-1, then the float sweep alone (to compare two versions)
         phase_sweep_alone(pipe, survivors)
+        return 0
+    if sys.argv[1:] == ["--gcol"]:
+        # phases 0-1, then sw_align's and sw_score's shared-memory kernels
+        # against their long variants at phase 2's shapes
+        phase_gcol(pipe, survivors)
         return 0
     res = phase_kernels(pipe, survivors)
     phase_tie_prone(pipe)
@@ -2114,7 +2528,9 @@ def main() -> int:
     phase_msa_cmds()
     launches["legacy"] = phase_legacy(chains, db)
     print(f"[12] phase 12: {time.perf_counter() - t12:.1f} s")
-    print(f"[13] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    long_res, long_launches = phase_long(chains)
+    print(f"[end] all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     print(card)
     # library_ms: no single PyTorch call computes SW, the walk or LDDT;
@@ -2129,7 +2545,8 @@ def main() -> int:
          "io_cmds_launches": launches["io_cmds"][k],
          "legacy_launches": launches["legacy"][k],
          **extra_times(res[k])}
-        for k, (src, rep, run) in KERNELS.items()]}))
+        for k, (src, rep, run) in KERNELS.items()]
+        + long_entries(long_res, long_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

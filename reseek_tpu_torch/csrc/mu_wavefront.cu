@@ -28,7 +28,8 @@
 // fit the lane type before the wrapper picks it:
 //   int16x2: two pairs a 32-bit word, PAD = -32768, when hi <= 32767
 //            (min(LA, LB) <= 8191 with the Mu table's largest entry, 4);
-//   int32:   one pair a word, PAD = -2^30, for every LB <= 8192.
+//   int32:   one pair a word, PAD = -2^30, while hi < 2^30 (every length
+//            the engines reach).
 // DPX adds wrap and never saturate; that proof is what makes them exact.
 //
 // Design: a warp runs one group (two pairs, or one).  Lane k owns a strip
@@ -45,6 +46,13 @@
 // on each side, so every lane runs every step unpredicated (a step
 // outside the real columns computes padding cells, which stay 0).  Rows
 // and columns past the last real letter of a group are not swept.
+// Past 8,192 columns (mu_wavefront_long, GCOL; int32 lanes only, which a
+// square shape that wide needs anyway: hi = 4 x 8,193 > 32,767) the rows
+// of words do not fit: each warp writes its group's row, padding words
+// included, to a device-memory scratch and reads it from there, a warp's
+// 32 lanes reading 32 consecutive words a step (one coalesced load, L1
+// hits after the first).  A plain load, not __ldg: the kernel wrote the
+// words.
 //
 // What bounds it on the H100: issue.  A cell pair (int16x2) costs two
 // shared-memory loads, their address adds and a byte permute for the
@@ -53,6 +61,7 @@
 // the R rows of a strip.  About 11 instructions per cell pair, ~5.5 per
 // cell, against the float row sweep's ~4x that plus two barriers a row.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -142,13 +151,15 @@ __host__ __device__ constexpr size_t tab_bytes(size_t elem) {
 
 // a [B, LA], b [B, LB] uint8 letters; tab16 [37, 37] int16 (PAD16 in the
 // padding row and column); bnd [groups, 2, 3, LB] words when LA > 32 R.
-template <class L, int R>
+// GCOL: the rows of words in gcol [groups, LB + 2 EDGE], not shared memory.
+template <class L, int R, bool GCOL>
 __global__ void __launch_bounds__(WARPS * 32)
 mu_wavefront_kernel(const uint8_t* __restrict__ a,
                     const uint8_t* __restrict__ b,
                     const int16_t* __restrict__ tab16,
                     float* __restrict__ out, uint32_t* __restrict__ bnd,
-                    int B, int LA, int LB, int open_, int ext) {
+                    uint32_t* gcol, int B, int LA, int LB, int open_,
+                    int ext) {
   using T = typename L::tab_t;
   constexpr int P = L::PAIRS;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -160,15 +171,18 @@ mu_wavefront_kernel(const uint8_t* __restrict__ a,
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int width = LB + 2 * EDGE;
-  // column j's word at lw[j + EDGE]: each half's byte offset in a row
-  uint32_t* lw = reinterpret_cast<uint32_t*>(smem + tab_bytes(sizeof(T))) +
-                 (size_t)w * width;
   const int groups = (B + P - 1) / P;
   const int g = blockIdx.x * WARPS + w;
   const bool live = g < groups;
   const int p0 = g * P;
+  // column j's word at lw[j + EDGE]: each half's byte offset in a row
+  uint32_t* lw =
+      GCOL ? gcol + (size_t)g * width
+           : reinterpret_cast<uint32_t*>(smem + tab_bytes(sizeof(T))) +
+                 (size_t)w * width;
   int lastb = 0, lasta = 0;
-  for (int k = lane; k < width; k += 32) {
+  // (GCOL has rows for the live groups only)
+  for (int k = lane; k < (GCOL && !live ? 0 : width); k += 32) {
     const int j = k - EDGE;
     uint32_t word = 0;
 #pragma unroll
@@ -317,23 +331,32 @@ mu_wavefront_kernel(const uint8_t* __restrict__ a,
   }
 }
 
-template <class L, int R>
+template <class L, int R, bool GCOL>
 cudaError_t launch(const uint8_t* a, const uint8_t* b, const int16_t* tab,
-                   float* out, uint32_t* bnd, int B, int LA, int LB,
-                   int open_, int ext, cudaStream_t stream) {
-  const size_t smem = tab_bytes(sizeof(typename L::tab_t)) +
-                      sizeof(uint32_t) * WARPS * (size_t)(LB + 2 * EDGE);
+                   float* out, uint32_t* bnd, uint32_t* gcol, int B, int LA,
+                   int LB, int open_, int ext, cudaStream_t stream) {
+  const size_t smem =
+      tab_bytes(sizeof(typename L::tab_t)) +
+      (GCOL ? 0 : sizeof(uint32_t) * WARPS * (size_t)(LB + 2 * EDGE));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        mu_wavefront_kernel<L, R>,
+        mu_wavefront_kernel<L, R, GCOL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int groups = (B + L::PAIRS - 1) / L::PAIRS;
   const int blocks = (groups + WARPS - 1) / WARPS;
-  mu_wavefront_kernel<L, R><<<blocks, WARPS * 32, smem, stream>>>(
-      a, b, tab, out, bnd, B, LA, LB, open_, ext);
+  mu_wavefront_kernel<L, R, GCOL><<<blocks, WARPS * 32, smem, stream>>>(
+      a, b, tab, out, bnd, gcol, B, LA, LB, open_, ext);
   return cudaGetLastError();
+}
+
+// the arguments both entries check; LB <= max_lb
+bool mu_args_ok(int LA, int LB, int max_lb, int open_, int ext, int R,
+                const void* bnd) {
+  return LA >= 0 && LB >= 1 && LB <= max_lb && open_ <= 0 && ext <= 0 &&
+         open_ >= -32767 && ext >= -32767 && (R == 4 || R == 8) &&
+         (LA <= 32 * R || bnd != nullptr);
 }
 
 }  // namespace
@@ -351,9 +374,8 @@ int mu_wavefront(const void* a, const void* b, const void* tab, void* out,
                  void* bnd, int B, int LA, int LB, int open_, int ext,
                  int bits, int R, void* stream) {
   if (B <= 0) return 0;
-  if (LA < 0 || LB < 1 || LB > MAX_LB || open_ > 0 || ext > 0 ||
-      open_ < -32767 || ext < -32767 || (R != 4 && R != 8) ||
-      (bits != 16 && bits != 32) || (LA > 32 * R && bnd == nullptr))
+  if (!mu_args_ok(LA, LB, MAX_LB, open_, ext, R, bnd) ||
+      (bits != 16 && bits != 32))
     return (int)cudaErrorInvalidValue;
   const uint8_t* pa = static_cast<const uint8_t*>(a);
   const uint8_t* pb = static_cast<const uint8_t*>(b);
@@ -362,10 +384,33 @@ int mu_wavefront(const void* a, const void* b, const void* tab, void* out,
   uint32_t* pw = static_cast<uint32_t*>(bnd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RESEEK_MU(L, R_) \
-  launch<L, R_>(pa, pb, pt, po, pw, B, LA, LB, open_, ext, s)
+  launch<L, R_, false>(pa, pb, pt, po, pw, nullptr, B, LA, LB, open_, ext, s)
   if (bits == 16) return R == 4 ? RESEEK_MU(S16x2, 4) : RESEEK_MU(S16x2, 8);
   return R == 4 ? RESEEK_MU(S32, 4) : RESEEK_MU(S32, 8);
 #undef RESEEK_MU
+}
+
+// mu_wavefront in int32 lanes for any LB >= 1 (taken past 8,192): gcol
+// [B, LB + 64] uint32 scratch (one row of words a pair).  The caller
+// proves int32 exact at the shape (ops/sw_sweep.py mu_lane_fits).
+int mu_wavefront_long(const void* a, const void* b, const void* tab,
+                      void* out, void* bnd, void* gcol, int B, int LA, int LB,
+                      int open_, int ext, int R, void* stream) {
+  if (B <= 0) return 0;
+  if (!mu_args_ok(LA, LB, INT_MAX - 2 * EDGE, open_, ext, R, bnd) ||
+      gcol == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* pa = static_cast<const uint8_t*>(a);
+  const uint8_t* pb = static_cast<const uint8_t*>(b);
+  const int16_t* pt = static_cast<const int16_t*>(tab);
+  float* po = static_cast<float*>(out);
+  uint32_t* pw = static_cast<uint32_t*>(bnd);
+  uint32_t* pg = static_cast<uint32_t*>(gcol);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return R == 4 ? launch<S32, 4, true>(pa, pb, pt, po, pw, pg, B, LA, LB,
+                                       open_, ext, s)
+                : launch<S32, 8, true>(pa, pb, pt, po, pw, pg, B, LA, LB,
+                                       open_, ext, s);
 }
 
 }  // extern "C"

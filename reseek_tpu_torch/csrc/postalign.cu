@@ -66,6 +66,21 @@
 // two FMAs (reseek_tpu/fp.py), which moves a distance by at most an ulp or
 // two, inside the `risky` margins (3e-5 on |d1-d2| at each threshold, 1e-3
 // on d^2 at R0^2 = 225) that send a pair to the exact host recompute.
+//
+// lddt_long (M > 7,680 columns, whose 29 bytes a column no longer fit in
+// shared memory): the same tiles, warps, cluster and risky rule, with the
+// columns read from device memory.  A warp loads its tile's 32 row
+// columns and 32 other columns once (lane l: column 32 I + l and column
+// 32 J + l, coordinates and flag, into registers) and at step s takes
+// column 32 J + ((l + s) mod 32)'s from lane (l + s) mod 32 by shuffles,
+// so nothing is staged.  The per-column counts go to a device-memory
+// scratch of 64-bit words, pres in the low and cons in the high 32 bits
+// (cons = 4 x the considered partners, which leaves 16 bits past 16,384
+// columns), each tile adding its lanes' row and column totals with one
+// 64-bit atomic each; after the cluster barrier the leader block forms
+// the scores 2,048 columns at a time in shared memory, and one thread adds
+// them left to right, in the order of lddt_kernel, so both give the same
+// bits.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -79,6 +94,7 @@ constexpr int LDDT_WARPS = 8;
 constexpr int WALK_W = 128;   // columns of a walk window (32-256 timed alike)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float R0_SQ = 225.0f;
+constexpr int LONG_SUM_COLS = 2048;   // lddt_long: scores staged a round
 
 // 16 bytes from device memory to shared memory, asynchronously
 __device__ __forceinline__ void copy16(void* smem, const void* gmem) {
@@ -379,6 +395,161 @@ lddt_kernel(const float* __restrict__ cq, const float* __restrict__ ct,
   }
 }
 
+// the row and column totals of a tile ((pres | cons << 16), at most 4 x
+// 32 each) as one 64-bit word: pres low, cons high
+__device__ __forceinline__ unsigned long long widen(int x) {
+  return (unsigned long long)(x & 0xffff) |
+         ((unsigned long long)((unsigned)x >> 16) << 32);
+}
+
+__global__ void __launch_bounds__(LDDT_WARPS * 32)
+lddt_long_kernel(const float* __restrict__ cq, const float* __restrict__ ct,
+                 const uint8_t* __restrict__ valid,
+                 const int* __restrict__ ncols, unsigned long long* cnt,
+                 float* __restrict__ out, uint8_t* __restrict__ risky, int M,
+                 int with_risky) {
+  __shared__ float part[LONG_SUM_COLS];
+  __shared__ int n_cols, any_flag;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nblk = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int pair = blockIdx.x / nblk;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const float* pq = cq + (size_t)pair * M * 3;
+  const float* pt = ct + (size_t)pair * M * 3;
+  const uint8_t* pv = valid + (size_t)pair * M;
+  unsigned long long* pc = cnt + (size_t)pair * M;   // zeroed by the caller
+  if (tid == 0) n_cols = 0;
+  __syncthreads();
+  int last = 0;
+  for (int c = tid; c < M; c += blockDim.x)
+    if (pv[c]) last = c + 1;
+  atomicMax(&n_cols, last);
+  __syncthreads();
+  // columns past the last valid one score 0 and add nothing to the sum
+  const int n = n_cols;
+  const int nt = (n + 31) / 32;
+  const int tiles = nt * (nt + 1) / 2;
+
+  // column c's coordinates and flag (0 past n)
+  struct Col {
+    float qx, qy, qz, tx, ty, tz;
+    int v;
+  };
+  auto load = [&](int c) -> Col {
+    Col k{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0};
+    if (c < n && pv[c]) {
+      k.qx = pq[3 * c]; k.qy = pq[3 * c + 1]; k.qz = pq[3 * c + 2];
+      k.tx = pt[3 * c]; k.ty = pt[3 * c + 1]; k.tz = pt[3 * c + 2];
+      k.v = 1;
+    }
+    return k;
+  };
+
+  int flag = 0;
+  for (int k = rank * LDDT_WARPS + w; k < tiles; k += nblk * LDDT_WARPS) {
+    // tile k -> (I, J), I <= J: J(J+1)/2 <= k < (J+1)(J+2)/2
+    int J = (int)((sqrtf(8.0f * (float)k + 1.0f) - 1.0f) * 0.5f);
+    while (J * (J + 1) / 2 > k) --J;
+    while ((J + 1) * (J + 2) / 2 <= k) ++J;
+    const int I = k - J * (J + 1) / 2;
+    const bool diag = I == J;
+    const int c = 32 * I + lane;
+    const Col r = load(c);
+    const Col oc = load(32 * J + lane);
+    const int s0 = diag ? 1 : 0;
+    const int s1 = diag ? 17 : 32;
+    int racc = 0, cacc = 0;
+    for (int s = s0; s < s1; ++s) {
+      const int src = (lane + s) & 31;     // column 32 J + src
+      const float ox = __shfl_sync(FULL, oc.qx, src);
+      const float oy = __shfl_sync(FULL, oc.qy, src);
+      const float oz = __shfl_sync(FULL, oc.qz, src);
+      const float ux = __shfl_sync(FULL, oc.tx, src);
+      const float uy = __shfl_sync(FULL, oc.ty, src);
+      const float uz = __shfl_sync(FULL, oc.tz, src);
+      const int ov = __shfl_sync(FULL, oc.v, src);
+      if (r.v && ov && (s < 16 || lane < 16 || !diag)) {
+        const float a1 = dist2(r.qx, r.qy, r.qz, ox, oy, oz);
+        const float a2 = dist2(r.tx, r.ty, r.tz, ux, uy, uz);
+        if (with_risky && (near(a1, R0_SQ, 1e-3f) || near(a2, R0_SQ, 1e-3f)))
+          flag = 1;
+        if (!(a1 > R0_SQ && a2 > R0_SQ)) {
+          const float dd = fabsf(__fsub_rn(__fsqrt_rn(a1), __fsqrt_rn(a2)));
+          const int inc = (dd <= 0.5f) + (dd <= 1.0f) + (dd <= 2.0f) +
+                          (dd <= 4.0f) + (4 << 16);
+          racc += inc;
+          cacc += inc;
+          if (with_risky &&
+              (near(dd, 0.5f, 3e-5f) || near(dd, 1.0f, 3e-5f) ||
+               near(dd, 2.0f, 3e-5f) || near(dd, 4.0f, 3e-5f)))
+            flag = 1;
+        }
+      }
+      // lane l holds column (l + s + 1) mod 32's total next
+      cacc = __shfl_sync(FULL, cacc, (lane + 1) & 31);
+    }
+    // after the last step lane l holds column (l + s1) mod 32's total
+    if (diag) cacc = __shfl_sync(FULL, cacc, (lane - s1) & 31);
+    if (racc) atomicAdd(&pc[c], widen(racc));
+    if (cacc) atomicAdd(&pc[32 * J + lane], widen(cacc));
+  }
+  const int f = __syncthreads_or(flag);
+  if (tid == 0) any_flag = f;
+  __threadfence();
+  // every block's counts are final
+  cluster.sync();
+  if (rank == 0 && tid == 0)
+    for (int q = 1; q < nblk; ++q)
+      any_flag |= *cluster.map_shared_rank(&any_flag, q);
+  // the leader has read the other blocks' shared memory
+  cluster.sync();
+  if (rank != 0) return;
+  float total = 0.0f;
+  for (int c0 = 0; c0 < n; c0 += LONG_SUM_COLS) {
+    const int c1 = min(n, c0 + LONG_SUM_COLS);
+    for (int c = c0 + tid; c < c1; c += blockDim.x) {
+      const unsigned long long tot = pc[c];
+      const int pres = (int)(tot & 0xffffffffu), cons = (int)(tot >> 32);
+      part[c - c0] = cons > 0 ? __fdiv_rn((float)pres, (float)cons) : 0.0f;
+    }
+    __syncthreads();
+    if (tid == 0) {
+#pragma unroll 8
+      for (int c = c0; c < c1; ++c) total = __fadd_rn(total, part[c - c0]);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    out[pair] = __fdiv_rn(total, (float)max(ncols[pair], 1));
+    if (with_risky) risky[pair] = (uint8_t)(any_flag != 0);
+  }
+}
+
+// a cluster launch of B x cluster blocks of LDDT_WARPS warps
+template <typename... Params, typename... Args>
+cudaError_t launch_lddt(void (*kernel)(Params...), int B, int cluster,
+                        size_t smem, void* stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * (unsigned)cluster);
+  cfg.blockDim = dim3(LDDT_WARPS * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -421,25 +592,31 @@ int lddt(const void* cq, const void* ct, const void* valid, const void* ncols,
         lddt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)B * (unsigned)cluster);
-  cfg.blockDim = dim3(LDDT_WARPS * 32);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, lddt_kernel, static_cast<const float*>(cq),
-      static_cast<const float*>(ct), static_cast<const uint8_t*>(valid),
-      static_cast<const int*>(ncols), static_cast<float*>(out),
-      static_cast<uint8_t*>(risky), M, with_risky);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_lddt(lddt_kernel, B, cluster, smem, stream,
+                     static_cast<const float*>(cq),
+                     static_cast<const float*>(ct),
+                     static_cast<const uint8_t*>(valid),
+                     static_cast<const int*>(ncols), static_cast<float*>(out),
+                     static_cast<uint8_t*>(risky), M, with_risky);
+}
+
+// lddt for M > 7680 (any M with 0 < M <= 2^20): cnt [B, M] uint64 zeroed
+// scratch (the per-column counts); the other arguments as lddt's.
+int lddt_long(const void* cq, const void* ct, const void* valid,
+              const void* ncols, void* out, void* risky, void* cnt, int B,
+              int M, int with_risky, int cluster, void* stream) {
+  if (B <= 0) return 0;
+  if (cluster < 1 || cluster > 8 || M < 1 || M > (1 << 20) ||
+      cnt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_lddt(lddt_long_kernel, B, cluster, 0, stream,
+                     static_cast<const float*>(cq),
+                     static_cast<const float*>(ct),
+                     static_cast<const uint8_t*>(valid),
+                     static_cast<const int*>(ncols),
+                     static_cast<unsigned long long*>(cnt),
+                     static_cast<float*>(out), static_cast<uint8_t*>(risky),
+                     M, with_risky);
 }
 
 }  // extern "C"

@@ -61,6 +61,18 @@
 // sit in registers; the tables and, per B column, the start of its row in
 // each table (16 bytes, one load a step; LB <= 8192) sit in shared
 // memory, both as byte offsets, so a lookup is one add and one load.
+// Past 8,192 columns (the _long entries, GCOL) the column words do not
+// fit beside the tables: the block's prologue writes its pair's words to
+// a device-memory scratch [B, LB] of 16-byte words, and each lane loads
+// its column's word from there, one 16-byte load a step; the 32 lanes of
+// a warp read 32 consecutive columns, so the load is coalesced, and the
+// two-group ring keeps the warps of a block within 8 steps of each other,
+// so their loads hit the same L1 lines.  (A plain load, not __ldg: the
+// words are written by this kernel, and the read-only path is not
+// coherent with that.)  Everything else is the same code.  Up to 8,192
+// columns the shared-memory path stays: the device-memory read measured
+// 2.4% slower at 213 pairs of 512x512 and, score only, 7.6% slower at 37
+// (chip_smoke.py --gcol; NVIDIA H100 80GB HBM3, 700 W).
 // The step is issue- and latency-bound (a few warps an SM), so the code
 // that runs per cell is kept short and free of branches: the feature
 // count is a template parameter for the default eight (no predicated
@@ -127,8 +139,9 @@ __device__ __forceinline__ int letter(uint8_t byte, int n) {
 }
 
 // R rows a lane; NF features, or 0 for tt.nf at run time; SCORE: the
-// running maximum of H only (best), no traceback and no best cell
-template <int R, int NF, bool SCORE>
+// running maximum of H only (best), no traceback and no best cell; GCOL:
+// the column words in gcol [B, LB] (device memory), not shared memory
+template <int R, int NF, bool SCORE, bool GCOL>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 sw_align_kernel(const uint8_t* __restrict__ prof,
                 const uint8_t* __restrict__ prof_b,
@@ -138,15 +151,17 @@ sw_align_kernel(const uint8_t* __restrict__ prof,
                 float* __restrict__ best, int* __restrict__ best_i,
                 int* __restrict__ best_j,
                 typename Word<R>::T* __restrict__ tb,
-                float* __restrict__ scratch) {
+                float* __restrict__ scratch, uint4* gcol) {
   using W = typename Word<R>::T;
   extern __shared__ __align__(16) float smem[];
   // last lane's H, H, E per step, two groups of GROUP steps
   __shared__ float ring[MAX_WARPS][2 * GROUP][3];
   __shared__ Best wbest[MAX_WARPS];
   float* tab = smem;
-  // per B column, the start of its row in each T_f: [LB][MAX_F] uint16
+  // per B column, the start of its row in each T_f: [LB][MAX_F] uint16,
+  // in shared memory (GCOL: the pair's row of gcol, 16 bytes a column)
   uint16_t* col = reinterpret_cast<uint16_t*>(smem + ((tab_floats + 3) & ~3));
+  uint4* gcp = GCOL ? gcol + (size_t)blockIdx.x * LB : nullptr;
   for (int k = threadIdx.x; k < tab_floats; k += blockDim.x)
     tab[k] = tables[k];
 
@@ -162,14 +177,27 @@ sw_align_kernel(const uint8_t* __restrict__ prof,
   const int tiles = (LA + tile_rows - 1) / tile_rows;
   const int passes = (tiles + nw - 1) / nw;
   float* sc = scratch + (size_t)pair * 3 * LB;   // [LB][3]: H, H, E
+  // the byte offset of column j's row in T_f
+  auto col_word = [&](int f, int j) -> uint32_t {
+    return f < nf ? 4u * (uint32_t)(tt.off[f] +
+                                    letter(pb[(size_t)f * L + j], tt.size[f]) *
+                                        (tt.size[f] + 1))
+                  : 0u;
+  };
+  if constexpr (GCOL) {
+    for (int j = threadIdx.x; j < LB; j += blockDim.x) {
+      uint32_t wd[MAX_F / 2];
 #pragma unroll
-  for (int f = 0; f < MAX_F; ++f)
-    for (int j = threadIdx.x; j < LB; j += blockDim.x)
-      col[j * MAX_F + f] =
-          f < nf ? (uint16_t)(4 * (tt.off[f] + letter(pb[(size_t)f * L + j],
-                                                      tt.size[f]) *
-                                                   (tt.size[f] + 1)))
-                 : 0;
+      for (int h = 0; h < MAX_F / 2; ++h)
+        wd[h] = col_word(2 * h, j) | (col_word(2 * h + 1, j) << 16);
+      gcp[j] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < MAX_F; ++f)
+      for (int j = threadIdx.x; j < LB; j += blockDim.x)
+        col[j * MAX_F + f] = (uint16_t)col_word(f, j);
+  }
   __syncthreads();
 
   Best b{0.0f, INT_MAX, INT_MAX};
@@ -228,7 +256,12 @@ sw_align_kernel(const uint8_t* __restrict__ prof,
       const bool jin = (unsigned)j < (unsigned)LB;
       const bool on = live && jin;
       uint4 cv = make_uint4(0u, 0u, 0u, 0u);   // this column's table rows
-      if (on) cv = *reinterpret_cast<const uint4*>(col + j * MAX_F);
+      if (on) {
+        if constexpr (GCOL)
+          cv = gcp[j];
+        else
+          cv = *reinterpret_cast<const uint4*>(col + j * MAX_F);
+      }
       float rh1 = __shfl_up_sync(FULL, oh1, 1);
       float rh2 = __shfl_up_sync(FULL, oh2, 1);
       float re1 = __shfl_up_sync(FULL, oe, 1);
@@ -375,34 +408,36 @@ sw_align_kernel(const uint8_t* __restrict__ prof,
   }
 }
 
-template <int R, int NF, bool SCORE>
+template <int R, int NF, bool SCORE, bool GCOL>
 cudaError_t launch(const uint8_t* prof, const uint8_t* prof_b,
                    const int64_t* ia, const int64_t* ib, const float* tables,
                    int tab_floats, const Tables& tt, int L, int B, int LA,
                    int LB, float open_, float ext, float* best, int* bi,
-                   int* bj, void* tb, float* scratch, cudaStream_t stream) {
+                   int* bj, void* tb, float* scratch, uint4* gcol,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)((tab_floats + 3) & ~3) +
-                      sizeof(uint16_t) * MAX_F * (size_t)LB;
+                      (GCOL ? 0 : sizeof(uint16_t) * MAX_F * (size_t)LB);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        sw_align_kernel<R, NF, SCORE>,
+        sw_align_kernel<R, NF, SCORE, GCOL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const int tiles = (LA + 32 * R - 1) / (32 * R);
   const int warps = tiles < MAX_WARPS ? tiles : MAX_WARPS;
-  sw_align_kernel<R, NF, SCORE><<<B, warps * 32, smem, stream>>>(
+  sw_align_kernel<R, NF, SCORE, GCOL><<<B, warps * 32, smem, stream>>>(
       prof, prof_b, ia, ib, tables, tab_floats, tt, L, LA, LB, open_, ext,
-      best, bi, bj, static_cast<typename Word<R>::T*>(tb), scratch);
+      best, bi, bj, static_cast<typename Word<R>::T*>(tb), scratch, gcol);
   return cudaGetLastError();
 }
 
 // The feature tables' layout from the alphabet sizes; false if the shape
-// or the tables are outside what the kernel takes.
+// or the tables are outside what the kernel takes (gcol: the columns'
+// words in device memory, any LB; else LB <= MAX_LB).
 bool tables_of(const int* sizes, int F, int tab_floats, int L, int LA,
-               int LB, Tables* tt) {
+               int LB, bool gcol, Tables* tt) {
   if (F < 1 || F > MAX_F || LA < 1 || LB < 1 || LA > L || LB > L ||
-      LB > MAX_LB)
+      (!gcol && LB > MAX_LB))
     return false;
   *tt = Tables{};
   tt->nf = F;
@@ -413,6 +448,71 @@ bool tables_of(const int* sizes, int F, int tab_floats, int L, int LA,
     off += (sizes[f] + 1) * (sizes[f] + 1);
   }
   return off == tab_floats && off <= 16383;
+}
+
+// The entries of each kind, GCOL for the _long ones.
+template <bool GCOL>
+int align_entry(const void* prof, const void* ia, const void* ib,
+                const void* tables, int tab_floats, const int* sizes, int F,
+                int L, int B, int LA, int LB, int rows_per_lane, float open_,
+                float ext, void* best, void* best_i, void* best_j, void* tb,
+                void* scratch, void* gcol, void* stream) {
+  if (B <= 0) return 0;
+  Tables tt;
+  if (!tables_of(sizes, F, tab_floats, L, LA, LB, GCOL, &tt) ||
+      (GCOL && gcol == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* p = static_cast<const uint8_t*>(prof);
+  const int64_t* pia = static_cast<const int64_t*>(ia);
+  const int64_t* pib = static_cast<const int64_t*>(ib);
+  const float* tab = static_cast<const float*>(tables);
+  float* pb = static_cast<float*>(best);
+  int* pi = static_cast<int*>(best_i);
+  int* pj = static_cast<int*>(best_j);
+  float* sc = static_cast<float*>(scratch);
+  uint4* gc = static_cast<uint4*>(gcol);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define RESEEK_LAUNCH(R, NF)                                                \
+  launch<R, NF, false, GCOL>(p, p, pia, pib, tab, tab_floats, tt, L, B, LA, \
+                             LB, open_, ext, pb, pi, pj, tb, sc, gc, st)
+  if (rows_per_lane == 4)
+    return F == MAX_F ? RESEEK_LAUNCH(4, MAX_F) : RESEEK_LAUNCH(4, 0);
+  if (rows_per_lane == 8)
+    return F == MAX_F ? RESEEK_LAUNCH(8, MAX_F) : RESEEK_LAUNCH(8, 0);
+#undef RESEEK_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool GCOL>
+int score_entry(const void* prof, const void* prof_b, const void* ia,
+                const void* ib, const void* tables, int tab_floats,
+                const int* sizes, int F, int L, int B, int LA, int LB,
+                int rows_per_lane, float open_, float ext, void* best,
+                void* scratch, void* gcol, void* stream) {
+  if (B <= 0) return 0;
+  Tables tt;
+  if (!tables_of(sizes, F, tab_floats, L, LA, LB, GCOL, &tt) ||
+      (GCOL && gcol == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* p = static_cast<const uint8_t*>(prof);
+  const uint8_t* q = static_cast<const uint8_t*>(prof_b);
+  const int64_t* pia = static_cast<const int64_t*>(ia);
+  const int64_t* pib = static_cast<const int64_t*>(ib);
+  const float* tab = static_cast<const float*>(tables);
+  float* pb = static_cast<float*>(best);
+  float* sc = static_cast<float*>(scratch);
+  uint4* gc = static_cast<uint4*>(gcol);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define RESEEK_LAUNCH(R, NF)                                                \
+  launch<R, NF, true, GCOL>(p, q, pia, pib, tab, tab_floats, tt, L, B, LA,  \
+                            LB, open_, ext, pb, nullptr, nullptr, nullptr,  \
+                            sc, gc, st)
+  if (rows_per_lane == 4)
+    return F == MAX_F ? RESEEK_LAUNCH(4, MAX_F) : RESEEK_LAUNCH(4, 0);
+  if (rows_per_lane == 8)
+    return F == MAX_F ? RESEEK_LAUNCH(8, MAX_F) : RESEEK_LAUNCH(8, 0);
+#undef RESEEK_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -432,28 +532,22 @@ int sw_align(const void* prof, const void* ia, const void* ib,
              int L, int B, int LA, int LB, int rows_per_lane, float open_,
              float ext, void* best, void* best_i, void* best_j, void* tb,
              void* scratch, void* stream) {
-  if (B <= 0) return 0;
-  Tables tt;
-  if (!tables_of(sizes, F, tab_floats, L, LA, LB, &tt))
-    return (int)cudaErrorInvalidValue;
-  const uint8_t* p = static_cast<const uint8_t*>(prof);
-  const int64_t* pia = static_cast<const int64_t*>(ia);
-  const int64_t* pib = static_cast<const int64_t*>(ib);
-  const float* tab = static_cast<const float*>(tables);
-  float* pb = static_cast<float*>(best);
-  int* pi = static_cast<int*>(best_i);
-  int* pj = static_cast<int*>(best_j);
-  float* sc = static_cast<float*>(scratch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RESEEK_LAUNCH(R, NF)                                                \
-  launch<R, NF, false>(p, p, pia, pib, tab, tab_floats, tt, L, B, LA, LB,   \
-                       open_, ext, pb, pi, pj, tb, sc, st)
-  if (rows_per_lane == 4)
-    return F == MAX_F ? RESEEK_LAUNCH(4, MAX_F) : RESEEK_LAUNCH(4, 0);
-  if (rows_per_lane == 8)
-    return F == MAX_F ? RESEEK_LAUNCH(8, MAX_F) : RESEEK_LAUNCH(8, 0);
-#undef RESEEK_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return align_entry<false>(prof, ia, ib, tables, tab_floats, sizes, F, L, B,
+                            LA, LB, rows_per_lane, open_, ext, best, best_i,
+                            best_j, tb, scratch, nullptr, stream);
+}
+
+// sw_align for any LB >= 1 (taken past 8,192): gcol, scratch of B x LB
+// 16-byte words, 16-byte aligned.
+int sw_align_long(const void* prof, const void* ia, const void* ib,
+                  const void* tables, int tab_floats, const int* sizes, int F,
+                  int L, int B, int LA, int LB, int rows_per_lane,
+                  float open_, float ext, void* best, void* best_i,
+                  void* best_j, void* tb, void* scratch, void* gcol,
+                  void* stream) {
+  return align_entry<true>(prof, ia, ib, tables, tab_floats, sizes, F, L, B,
+                           LA, LB, rows_per_lane, open_, ext, best, best_i,
+                           best_j, tb, scratch, gcol, stream);
 }
 
 // Score only: the pairs (prof[ia], prof_b[ib]), prof and prof_b both
@@ -465,27 +559,22 @@ int sw_score_profiles(const void* prof, const void* prof_b, const void* ia,
                       const int* sizes, int F, int L, int B, int LA, int LB,
                       int rows_per_lane, float open_, float ext, void* best,
                       void* scratch, void* stream) {
-  if (B <= 0) return 0;
-  Tables tt;
-  if (!tables_of(sizes, F, tab_floats, L, LA, LB, &tt))
-    return (int)cudaErrorInvalidValue;
-  const uint8_t* p = static_cast<const uint8_t*>(prof);
-  const uint8_t* q = static_cast<const uint8_t*>(prof_b);
-  const int64_t* pia = static_cast<const int64_t*>(ia);
-  const int64_t* pib = static_cast<const int64_t*>(ib);
-  const float* tab = static_cast<const float*>(tables);
-  float* pb = static_cast<float*>(best);
-  float* sc = static_cast<float*>(scratch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RESEEK_LAUNCH(R, NF)                                                \
-  launch<R, NF, true>(p, q, pia, pib, tab, tab_floats, tt, L, B, LA, LB,    \
-                      open_, ext, pb, nullptr, nullptr, nullptr, sc, st)
-  if (rows_per_lane == 4)
-    return F == MAX_F ? RESEEK_LAUNCH(4, MAX_F) : RESEEK_LAUNCH(4, 0);
-  if (rows_per_lane == 8)
-    return F == MAX_F ? RESEEK_LAUNCH(8, MAX_F) : RESEEK_LAUNCH(8, 0);
-#undef RESEEK_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return score_entry<false>(prof, prof_b, ia, ib, tables, tab_floats, sizes,
+                            F, L, B, LA, LB, rows_per_lane, open_, ext, best,
+                            scratch, nullptr, stream);
+}
+
+// sw_score_profiles for any LB >= 1 (taken past 8,192): gcol as
+// sw_align_long's.
+int sw_score_profiles_long(const void* prof, const void* prof_b,
+                           const void* ia, const void* ib, const void* tables,
+                           int tab_floats, const int* sizes, int F, int L,
+                           int B, int LA, int LB, int rows_per_lane,
+                           float open_, float ext, void* best, void* scratch,
+                           void* gcol, void* stream) {
+  return score_entry<true>(prof, prof_b, ia, ib, tables, tab_floats, sizes,
+                           F, L, B, LA, LB, rows_per_lane, open_, ext, best,
+                           scratch, gcol, stream);
 }
 
 }  // extern "C"

@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -53,6 +54,16 @@ _SIGNATURES = {
                        _P],
     "lddt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
+# the long-column variants: their short twin's arguments and one scratch
+# pointer more, before the stream (mu_wavefront_long: no lane-bits
+# argument, int32 only)
+_SIGNATURES.update({
+    "mu_wavefront_long": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sw_align_long": _SIGNATURES["sw_align"][:-1] + [_P, _P],
+    "sw_score_profiles_long": _SIGNATURES["sw_score_profiles"][:-1] + [_P,
+                                                                       _P],
+    "lddt_long": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+})
 
 _lock = threading.Lock()
 
@@ -153,6 +164,14 @@ def counted(wrapper):
     wrapper.launches = 0
     wrapper.by_device = collections.Counter()
     return wrapper
+
+
+def variant(name: str):
+    """The launch counts of a kernel variant that a wrapper picks by a
+    plain shape test (e.g. sw_align's columns read from device memory past
+    its shared-memory limit): the wrapper hands it to ``launch`` in place
+    of itself, so the variant's launches are counted apart."""
+    return counted(types.SimpleNamespace(__name__=name))
 
 
 def launch(wrapper, name: str, t: torch.Tensor, *args) -> None:

@@ -1,7 +1,10 @@
 """Post-alignment ops of stage 3, counterpart of
 reseek_tpu/ops/postalign_jax.py: the batched traceback walk and batched
 LDDT.  On CUDA tensors each launches its kernel (csrc/postalign.cu); on
-CPU tensors each runs its plain version, defined beside it."""
+CPU tensors each runs its plain version, defined beside it.  LDDT past
+MAX_LDDT_COLS columns (``lddt_uses_global``) launches the kernel's long
+variant, which reads the columns from device memory, counted apart on
+``lddt_long``."""
 
 from __future__ import annotations
 
@@ -20,6 +23,15 @@ PM, PD, PI, PEND = 1, 2, 3, 0
 R0_SQ = np.float32(225.0)
 THRESHOLDS = (0.5, 1.0, 2.0, 4.0)
 MAX_LDDT_COLS = 7680     # shared-memory bound of the kernel (29 B/column)
+MAX_LDDT_LONG_COLS = 1 << 20   # the long variant's int32 tile index
+# launch counts of the long variant (M > MAX_LDDT_COLS)
+lddt_long = kernels.variant("lddt_long")
+
+
+def lddt_uses_global(m: int) -> bool:
+    """Whether lddt_batch at M columns takes the kernel's long variant
+    (coordinates and per-column counts in device memory)."""
+    return m > MAX_LDDT_COLS
 LDDT_WARPS = 8           # warps of a block of the kernel
 MAX_CLUSTER = 8          # blocks of a thread-block cluster (portable limit)
 
@@ -160,8 +172,8 @@ def lddt_batch(cq: torch.Tensor, ct: torch.Tensor, valid: torch.Tensor,
     if (three != 3 or ct.shape != cq.shape or valid.shape != (b, m)
             or ncols.shape != (b,)):
         raise ValueError("lddt_batch: bad shapes")
-    if m > MAX_LDDT_COLS:
-        raise ValueError(f"lddt_batch: M {m} > {MAX_LDDT_COLS}")
+    if m > MAX_LDDT_LONG_COLS:
+        raise ValueError(f"lddt_batch: M {m} > {MAX_LDDT_LONG_COLS}")
     if not 0 <= cluster <= MAX_CLUSTER:
         raise ValueError(f"lddt_batch: cluster {cluster} not in 0..8")
     _cuda_inputs("lddt_batch", cq, ct, valid, ncols)
@@ -169,11 +181,17 @@ def lddt_batch(cq: torch.Tensor, ct: torch.Tensor, valid: torch.Tensor,
     out = torch.empty(b, dtype=torch.float32, device=dev)
     risky = torch.zeros(b, dtype=torch.bool, device=dev)
     if b > 0:
-        kernels.launch(
-            lddt_batch, "lddt", cq, kernels.ptr(cq), kernels.ptr(ct),
-            kernels.ptr(valid), kernels.ptr(ncols), kernels.ptr(out),
-            kernels.ptr(risky), b, m, int(with_risky),
-            cluster or lddt_cluster(b, m, _sm_count(dev)))
+        args = (kernels.ptr(cq), kernels.ptr(ct), kernels.ptr(valid),
+                kernels.ptr(ncols), kernels.ptr(out), kernels.ptr(risky))
+        tail = (b, m, int(with_risky),
+                cluster or lddt_cluster(b, m, _sm_count(dev)))
+        if lddt_uses_global(m):
+            # per column: preserved (low 32 bits) and considered counts
+            counts = torch.zeros((b, m), dtype=torch.int64, device=dev)
+            kernels.launch(lddt_long, "lddt_long", cq, *args,
+                           kernels.ptr(counts), *tail)
+        else:
+            kernels.launch(lddt_batch, "lddt", cq, *args, *tail)
     return (out, risky) if with_risky else out
 
 

@@ -23,6 +23,13 @@ gives the JAX package's skewed bytes back.
 substitution tensor): best [B] float32 only, the B side read from its own
 profile tensor; its plain version is ``profile_smx`` followed by
 ``sw_score_ref``.
+
+Both take any LB: up to MAX_LB columns the kernel stages each column's
+table offsets in shared memory; past it (``sw_align_uses_global``) the
+wrappers launch the kernel's long variant (the ``_long`` C entries), which
+reads them from a device-memory scratch and is otherwise the same code,
+and count those launches apart, on ``sw_align_long`` and
+``sw_score_long``.
 """
 
 from __future__ import annotations
@@ -43,6 +50,22 @@ MAX_LB = 8192         # B columns the kernel stages in shared memory
 KERNEL_WARPS = 8      # tiles the kernel sweeps at once, one warp each
 MAX_PENALTY = 512.0   # |open|, |ext| below NEG's float32 spacing / 2
 MAX_TABLE_FLOATS = 16383   # the kernel's 16-bit byte offsets into them
+
+
+# launch counts of the long variants (LB > MAX_LB)
+sw_align_long = kernels.variant("sw_align_long")
+sw_score_long = kernels.variant("sw_score_long")
+
+
+def sw_align_uses_global(lb: int) -> bool:
+    """Whether sw_align and sw_score_profiles at LB columns take the
+    kernel's long variant (the column words in device memory)."""
+    return lb > MAX_LB
+
+
+def _column_words(b: int, lb: int, device) -> torch.Tensor:
+    """The long variant's scratch: a 16-byte word a B column a pair."""
+    return torch.empty((b, lb, 16), dtype=torch.uint8, device=device)
 
 
 def rows_per_lane(la: int) -> int:
@@ -101,8 +124,6 @@ def check_pairs(prof, ia, ib, table, la, lb, open_, ext) -> None:
     if not (1 <= la <= prof.shape[2] and 1 <= lb <= prof.shape[2]):
         raise ValueError(f"sw_align: shape {(la, lb)} outside the profiles' "
                          f"length {prof.shape[2]}")
-    if lb > MAX_LB:
-        raise ValueError(f"sw_align: LB {lb} > {MAX_LB}")
     if prof.shape[1] != len(table.sizes) or prof.shape[1] > MAX_FEATURES:
         raise ValueError(f"sw_align: {prof.shape[1]} features, table has "
                          f"{len(table.sizes)} (at most {MAX_FEATURES})")
@@ -151,12 +172,17 @@ def sw_align(prof: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor,
     scratch = (torch.empty((b, lb, 3), dtype=torch.float32, device=dev)
                if shape[1] > KERNEL_WARPS else best)
     sizes = (ctypes.c_int * len(table.sizes))(*table.sizes)
-    kernels.launch(
-        sw_align, "sw_align", prof, kernels.ptr(prof), kernels.ptr(ia),
-        kernels.ptr(ib), kernels.ptr(table.blocks), table.blocks.numel(),
-        sizes, len(table.sizes), prof.shape[2], b, la, lb, 2 * shape[4],
-        float(open_), float(ext), kernels.ptr(best), kernels.ptr(bi),
-        kernels.ptr(bj), kernels.ptr(tb), kernels.ptr(scratch))
+    args = (kernels.ptr(prof), kernels.ptr(ia), kernels.ptr(ib),
+            kernels.ptr(table.blocks), table.blocks.numel(), sizes,
+            len(table.sizes), prof.shape[2], b, la, lb, 2 * shape[4],
+            float(open_), float(ext), kernels.ptr(best), kernels.ptr(bi),
+            kernels.ptr(bj), kernels.ptr(tb), kernels.ptr(scratch))
+    if sw_align_uses_global(lb):
+        cols = _column_words(b, lb, dev)
+        kernels.launch(sw_align_long, "sw_align_long", prof, *args,
+                       kernels.ptr(cols))
+    else:
+        kernels.launch(sw_align, "sw_align", prof, *args)
     return best, bi, bj, tb
 
 
@@ -182,12 +208,16 @@ def sw_score_profiles(prof: torch.Tensor, prof_b: torch.Tensor,
                            device=prof.device)
                if -(-la // (32 * r)) > KERNEL_WARPS else best)
     sizes = (ctypes.c_int * len(table.sizes))(*table.sizes)
-    kernels.launch(
-        sw_score_profiles, "sw_score_profiles", prof, kernels.ptr(prof),
-        kernels.ptr(prof_b), kernels.ptr(ia), kernels.ptr(ib),
-        kernels.ptr(table.blocks), table.blocks.numel(), sizes,
-        len(table.sizes), prof.shape[2], b, la, lb, r, float(open_),
-        float(ext), kernels.ptr(best), kernels.ptr(scratch))
+    args = (kernels.ptr(prof), kernels.ptr(prof_b), kernels.ptr(ia),
+            kernels.ptr(ib), kernels.ptr(table.blocks), table.blocks.numel(),
+            sizes, len(table.sizes), prof.shape[2], b, la, lb, r,
+            float(open_), float(ext), kernels.ptr(best), kernels.ptr(scratch))
+    if sw_align_uses_global(lb):
+        cols = _column_words(b, lb, prof.device)
+        kernels.launch(sw_score_long, "sw_score_profiles_long", prof, *args,
+                       kernels.ptr(cols))
+    else:
+        kernels.launch(sw_score_profiles, "sw_score_profiles", prof, *args)
     return best
 
 

@@ -9,11 +9,16 @@ Two entries, two CUDA sources:
   is an exact small integer and any evaluation order gives the scores of
   ops/sw_np.sw_score bit for bit; the kernel runs the DP in int16 pairs
   or int32 on Hopper's DPX instructions, with the lane type that
-  ``mu_lane_bits`` proves cannot wrap.  Its table is a ``MuTable``, built
-  and checked once.
+  ``mu_lane_bits`` proves cannot wrap.  Past MU_MAX_LB columns
+  (``mu_uses_global``) it launches the kernel's long variant, int32
+  lanes with the column words in device memory, counted apart on
+  ``mu_sweep_long``.  Its table is a ``MuTable``, built and checked
+  once.
 - ``sw_score_sweep``: the float row sweep of the score-only stage-2
   prepass (csrc/sw_sweep.cu; replaces sw_score_sweep_pallas and the
-  gather-sum that fed it a substitution tensor).  It takes the pairs'
+  gather-sum that fed it a substitution tensor), up to SWEEP_MAX_LB
+  columns (``sweep_takes``; the engine gives longer chunks the exact
+  score).  It takes the pairs'
   uint8 profiles and the per-feature tables, as sw_align.sw_score_profiles
   does, and builds each cell's score in the kernel in profile_smx's
   order, so no [B, LA, LB] tensor exists.  It follows the op order of the
@@ -43,7 +48,8 @@ from reseek_tpu_torch.ops.sw_align import (FeatureTable, check_b_side,
                                            check_pairs)
 
 NEG = np.float32(-9e9)
-MAX_LB = 8192
+SWEEP_MAX_LB = 8192        # columns of the float sweep (no long variant)
+MU_MAX_LB = 8192           # columns the Mu filter keeps in shared memory
 SWEEP_MAX_V = 16           # B columns a lane of the float sweep
 SWEEP_MAX_LETTERS = 63     # alphabet size: 4 x letter fits a byte
 SWEEP_MAX_SLOTS = 256      # the tables' rows (alphabet sizes + 1, summed)
@@ -116,11 +122,18 @@ def mu_lane_fits(la: int, lb: int, smax: int, smin: int, open_: int,
     return tmin <= lo and hi <= tmax and pad + hi < 0
 
 
+def mu_uses_global(lb: int) -> bool:
+    """Whether mu_sw_scores at LB columns takes the kernel's long variant
+    (int32 lanes, the column words in device memory)."""
+    return lb > MU_MAX_LB
+
+
 def mu_lane_bits(la: int, lb: int, smax: int, smin: int, open_: int,
                  ext: int) -> int:
     """The kernel's lane type for a shape: 16 (two pairs a 32-bit word)
-    where every value fits int16, else 32.  Raises where neither fits."""
-    for bits in (16, 32):
+    where every value fits int16, else 32; the long variant has int32
+    lanes only.  Raises where no lane type it has fits."""
+    for bits in ((32,) if mu_uses_global(lb) else (16, 32)):
         if mu_lane_fits(la, lb, smax, smin, open_, ext, bits):
             return bits
     raise ValueError(f"mu_sw_scores: no lane type holds shape {(la, lb)}")
@@ -144,6 +157,17 @@ def _gap_penalties(open_: float, ext: float) -> Tuple[int, int]:
     return out[0], out[1]
 
 
+# launch counts of the Mu filter's long variant (LB > MU_MAX_LB)
+mu_sweep_long = kernels.variant("mu_sweep_long")
+
+
+def sweep_takes(lb: int) -> bool:
+    """Whether the float sweep takes LB columns (no long variant: it runs
+    only in the engine's optional prepasses, which give longer chunks the
+    exact score, ops/sw_align.sw_score_profiles)."""
+    return lb <= SWEEP_MAX_LB
+
+
 @kernels.counted
 def mu_sw_scores(a: torch.Tensor, b: torch.Tensor, table: MuTable,
                  open_: float, ext: float) -> torch.Tensor:
@@ -164,8 +188,6 @@ def mu_sw_scores(a: torch.Tensor, b: torch.Tensor, table: MuTable,
         raise ValueError("mu_sw_scores: tensors must be contiguous")
     bsz, la = a.shape
     lb = b.shape[1]
-    if lb > MAX_LB:
-        raise ValueError(f"mu_sw_scores: LB {lb} > {MAX_LB}")
     if bsz == 0 or la == 0 or lb == 0:
         return torch.zeros(bsz, dtype=torch.float32, device=a.device)
     out = torch.empty(bsz, dtype=torch.float32, device=a.device)
@@ -175,10 +197,17 @@ def mu_sw_scores(a: torch.Tensor, b: torch.Tensor, table: MuTable,
     # the boundary rows between passes of 32 R rows, two alternating
     bnd = (torch.empty((groups, 2, 3, lb), dtype=torch.int32,
                        device=a.device) if la > 32 * r else out)
-    kernels.launch(mu_sw_scores, "mu_wavefront", a, kernels.ptr(a),
-                   kernels.ptr(b), kernels.ptr(table.tab16),
-                   kernels.ptr(out), kernels.ptr(bnd), bsz, la, lb, io, ie,
-                   bits, r)
+    args = (kernels.ptr(a), kernels.ptr(b), kernels.ptr(table.tab16),
+            kernels.ptr(out), kernels.ptr(bnd))
+    if mu_uses_global(lb):
+        # a row of column words a pair, 32 padding words on each side
+        cols = torch.empty((bsz, lb + 64), dtype=torch.int32,
+                           device=a.device)
+        kernels.launch(mu_sweep_long, "mu_wavefront_long", a, *args,
+                       kernels.ptr(cols), bsz, la, lb, io, ie, r)
+    else:
+        kernels.launch(mu_sw_scores, "mu_wavefront", a, *args, bsz, la, lb,
+                       io, ie, bits, r)
     return out
 
 
@@ -189,8 +218,9 @@ def sweep_layout(lb: int) -> Tuple[int, int]:
     over LB / 512 warps above.  (On an H100 one warp a pair was the
     fastest up to 512 columns, and four warps of 8 columns the fastest at
     34 x 1,024 x 1,024: PERF.md §6.)"""
-    if not 1 <= lb <= MAX_LB:
-        raise ValueError(f"sw_score_sweep: LB {lb} outside [1, {MAX_LB}]")
+    if not 1 <= lb <= SWEEP_MAX_LB:
+        raise ValueError(f"sw_score_sweep: LB {lb} outside "
+                         f"[1, {SWEEP_MAX_LB}]")
     if lb > 4096:
         return SWEEP_MAX_V, -(-lb // (32 * SWEEP_MAX_V))
     if lb > 512:

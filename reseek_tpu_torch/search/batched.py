@@ -24,9 +24,9 @@ last pair.  reseek_tpu's four jitted stages map onto the port's kernels:
 Every stage launches all its batches before it fetches any result
 (stages 1 and 2 in one transfer); TS/P/E are finished on the host
 (engine._finish_from_lddt).  On ``device="cpu"``
-every kernel runs its plain version.  The kernels take at most MAX_LB
-(8,192) columns, so DeviceDB refuses a longer chain, where reseek_tpu's
-takes any length.
+every kernel runs its plain version.  Any length is taken, as by
+reseek_tpu's engine: past 8,192 columns the Mu filter, the score-only
+kernel, sw_align and LDDT launch their long variants.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ from reseek_tpu_torch.device import DeviceLike, host_cores, resolve
 from reseek_tpu_torch.encoder.dss import encode_chain
 from reseek_tpu_torch.ops.postalign import lddt_batch, walk_traceback_batch
 from reseek_tpu_torch.ops.smx import PAD_BYTE, flat_layout, mu_table
-from reseek_tpu_torch.ops.sw_align import (MAX_LB, FeatureTable, sw_align,
+from reseek_tpu_torch.ops.sw_align import (FeatureTable, sw_align,
                                            sw_score_profiles)
 from reseek_tpu_torch.ops.sw_sweep import MuTable, mu_sw_scores
 from reseek_tpu_torch.search.engine import (_PATH_CHARS, _f32,
@@ -76,8 +76,7 @@ class DeviceDB:
     letters and the reversed Mu letters (letter 36 past the end, the
     reversed ones left-aligned), the coordinates, all padded to one Lmax
     and gathered and sliced per batch on the device; with
-    with_rev_profiles also the reversed chains' profiles.  Raises
-    ValueError when the longest chain needs a bucket above MAX_LB."""
+    with_rev_profiles also the reversed chains' profiles."""
 
     def __init__(self, ecs: List[EncodedChain], params: DSSParams,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
@@ -94,11 +93,6 @@ class DeviceDB:
             self.lmax = -(-lmax // 256) * 256
         else:
             self.lmax = bucket_for(lmax, buckets)
-        if self.lmax > MAX_LB:
-            raise ValueError(
-                f"DeviceDB: a chain of {lmax} residues needs a "
-                f"{self.lmax}-column bucket; the port's kernels take at most "
-                f"{MAX_LB} columns")
         self.buckets = tuple(b for b in buckets if b <= self.lmax)
         if not self.buckets or self.buckets[-1] < self.lmax:
             self.buckets = tuple(self.buckets) + (self.lmax,)

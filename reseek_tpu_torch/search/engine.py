@@ -64,8 +64,9 @@ from reseek_tpu_torch.ops.postalign import (PD, PI, PM, lddt_batch,
                                             walk_traceback_batch)
 from reseek_tpu_torch.ops.smx import PAD_BYTE, flat_layout, mu_table
 from reseek_tpu_torch.ops.sw_align import (FeatureTable, sw_align,
-                                           sw_score_profiles)
-from reseek_tpu_torch.ops.sw_sweep import MuTable, mu_sw_scores, sw_score_sweep
+                                           sw_score_profiles, tb_shape)
+from reseek_tpu_torch.ops.sw_sweep import (MuTable, mu_sw_scores,
+                                           sw_score_sweep, sweep_takes)
 from reseek_tpu_torch.parallel.mesh import MeshLike, as_mesh
 
 # Cell budgets of the per-launch device batches (DP cells per launch);
@@ -73,6 +74,13 @@ from reseek_tpu_torch.parallel.mesh import MeshLike, as_mesh
 STAGE1_CELLS = int(os.environ.get("RESEEK_STAGE1_CELLS", str(1 << 28)))
 STAGE2_CELLS = int(os.environ.get("RESEEK_STAGE2_CELLS", str(1 << 27)))
 STAGE3_CELLS = int(os.environ.get("RESEEK_STAGE3_CELLS", str(1 << 26)))
+# Traceback bytes of a stage-3 chunk (sw_align's 4-bit cells): at most
+# this share of the memory of the smallest device the engine runs on
+# (stage3_tb_bytes).  From edge 4,096 up the cell budget leaves 8 pairs a
+# chunk, and a pair at edge 131,072 (a chain of 99,998 residues) holds
+# 8 GiB of traceback, so on an 80 GB card this cuts such chunks down to
+# one pair.
+STAGE3_TB_SHARE = 5
 # Stage 2 (score-only prepass) uses the row-sweep kernel, whose float
 # summation order differs from the reference wavefront by at most ~1e-3
 # on real profiles; the guard band keeps every pair that could exactly
@@ -121,6 +129,25 @@ def _batch_shape(n: int, le: int, cells: int, multiple: int = 1,
         p *= 2
     bs = min(cap, p)
     return -(-bs // multiple) * multiple
+
+
+def stage3_tb_bytes(device: torch.device) -> int:
+    """The traceback bytes a stage-3 chunk may hold on ``device``: its
+    total memory (the host's physical memory for the CPU) over
+    STAGE3_TB_SHARE."""
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+    else:
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    return total // STAGE3_TB_SHARE
+
+
+def _stage3_batch(n: int, lea: int, leb: int, tb_bytes: int) -> int:
+    """Pairs a stage-3 chunk of shape [lea, leb]: ``_batch_shape`` under
+    STAGE3_CELLS, cut to what tb_bytes of traceback hold (at least one
+    pair)."""
+    bs = _batch_shape(n, lea, STAGE3_CELLS, le_b=leb)
+    return max(1, min(bs, tb_bytes // int(np.prod(tb_shape(1, lea, leb)))))
 
 
 def _rect_edges(ea: np.ndarray, eb: np.ndarray
@@ -326,6 +353,9 @@ class DeviceSelfSearch:
         # W's per-feature blocks, the stage-3 kernel's tables
         self.table = FeatureTable.build(self.w, self.offsets)
         self.prof_rev: Optional[torch.Tensor] = None
+        # a stage-3 chunk's traceback budget, for any device of the mesh
+        self.tb_bytes = min(stage3_tb_bytes(d) for d in (
+            self.mesh.devices if self.mesh is not None else (dev,)))
         # host-clock walls of the last stage-1 call, stage-2 prepass and
         # align_survivors, each read after every device has finished (see
         # _clock)
@@ -619,7 +649,10 @@ class DeviceSelfSearch:
         kernel (ops/sw_align.sw_score_profiles), for scores that are
         reported, such as the self-reversal scores.  Both read the pairs'
         profiles: no substitution tensor is built.  b_side_rev scores
-        against the reversed chains' profiles."""
+        against the reversed chains' profiles.  The float sweep takes at
+        most SWEEP_MAX_LB columns (ops/sw_sweep.sweep_takes): a longer
+        chunk gets the exact score, the value STAGE2_GUARD's band holds
+        the sweep's to."""
         t0 = self._clock()
         p = self.params
         out = np.zeros(len(pairs_orig), np.float32)
@@ -634,7 +667,8 @@ class DeviceSelfSearch:
             ia = v._sorted_idx(pairs_orig[rr, 0])
             ib = v._sorted_idx(pairs_orig[rr, 1])
             prof_b = v.prof_rev if b_side_rev else v.prof
-            score = sw_score_profiles if exact else sw_score_sweep
+            score = (sw_score_sweep if not exact and sweep_takes(le)
+                     else sw_score_profiles)
             jobs.append((rr, score(v.prof, prof_b, ia, ib, v.table, le, le,
                                    go, ge)))
         for (rr, _), sc in zip(jobs, self._fetch([x for _, x in jobs])):
@@ -664,7 +698,7 @@ class DeviceSelfSearch:
         """[(lea, leb, chunk pairs [n, 2])].  The DP shape is
         rectangular (A edge x B edge) when the edges differ >= 2x, else the
         larger edge's square; chunks hold at most STAGE3_CELLS DP
-        cells."""
+        cells and ``tb_bytes`` of traceback (``_stage3_batch``)."""
         ra, rb = _rect_edges(self._edge_of(self.lens[pairs_orig[:, 0]]),
                              self._edge_of(self.lens[pairs_orig[:, 1]]))
         keys = ra.astype(np.int64) * (1 << 20) + rb
@@ -672,7 +706,7 @@ class DeviceSelfSearch:
         for key in sorted({int(x) for x in keys}):
             lea, leb = key >> 20, key & ((1 << 20) - 1)
             rows = np.flatnonzero(keys == key)
-            bs = _batch_shape(len(rows), lea, STAGE3_CELLS, le_b=leb)
+            bs = _stage3_batch(len(rows), lea, leb, self.tb_bytes)
             plan.extend((lea, leb, pairs_orig[rows[kk: kk + bs]])
                         for kk in range(0, len(rows), bs))
         return plan
@@ -685,12 +719,21 @@ class DeviceSelfSearch:
                  self._sorted_idx(chunk[:, 1]))
                 for lea, leb, chunk in self._stage3_chunks(pairs_orig)]
 
+    def m_cap(self, chunk: np.ndarray) -> int:
+        """LDDT's columns for a chunk of (i, j) original-index pairs: its
+        largest shorter-chain length, which bounds every pair's aligned
+        columns (columns past a pair's own add exact zeros).  Host lengths:
+        no device sync."""
+        return int(np.minimum(self.lens[chunk[:, 0]],
+                              self.lens[chunk[:, 1]]).max())
+
     def _stage3_chunk(self, lea: int, leb: int, ia: torch.Tensor,
-                      ib: torch.Tensor) -> Dict[str, torch.Tensor]:
+                      ib: torch.Tensor, m_cap: int) -> Dict[str, torch.Tensor]:
         """Full-profile SW with traceback (scores built from the profiles
         in the kernel: no [n, lea, leb] tensor), backward walk,
-        aligned-column coordinate gather and LDDT for sorted-index pairs
-        (ia, ib) with DP shape [lea, leb]."""
+        aligned-column coordinate gather and LDDT over m_cap columns
+        (``m_cap``) for sorted-index pairs (ia, ib) with DP shape [lea,
+        leb]."""
         p = self.params
         best, bi, bj, tb = sw_align(self.prof, ia, ib, self.table, lea, leb,
                                     float(p.gap_open), float(p.gap_ext))
@@ -698,7 +741,7 @@ class DeviceSelfSearch:
                                                           lea)
         del tb
         cq, ct, valid, n_m = aligned_coords(path_rev, bi, bj, ia, ib,
-                                            self.coords, min(lea, leb))
+                                            self.coords, m_cap)
         lddt, risky = lddt_batch(cq, ct, valid, n_m, with_risky=True)
         return {"best": best, "lo_a": lo_a, "lo_b": lo_b, "hi_a": bi,
                 "hi_b": bj, "plen": plen, "lddt": lddt, "n_m": n_m,
@@ -772,7 +815,7 @@ class DeviceSelfSearch:
             v = self._view(len(jobs))
             jobs.append((chunk, v._stage3_chunk(
                 lea, leb, v._sorted_idx(chunk[:, 0]),
-                v._sorted_idx(chunk[:, 1]))))
+                v._sorted_idx(chunk[:, 1]), self.m_cap(chunk))))
         fetched = [(chunk, {k: v.cpu().numpy() for k, v in out.items()})
                    for chunk, out in jobs]
         t1 = self._clock()

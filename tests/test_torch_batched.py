@@ -226,18 +226,17 @@ def _long_chain(n: int) -> Chain:
 
 @pytest.mark.parametrize("n", [8192, 8193])
 def test_device_db_limit(n):
-    """A chain of up to MAX_LB (8,192) residues takes a bucket of its
-    length rounded up to 256; one residue more raises, on the CPU as on
-    the card: no plain-version or host fallback."""
+    """A chain past the largest preset bucket takes a bucket of its length
+    rounded up to 256, on either side of the kernels' 8,192 shared-memory
+    columns (past them they launch their long variants): DeviceDB has no
+    length limit, as reseek_tpu's has none."""
     p = DSSParams.create("verysensitive")
     ecs = [encode_for_search(_long_chain(n), p, with_self_rev=False)]
-    if n <= batched.MAX_LB:
-        db = batched.DeviceDB(ecs, p, with_rev_profiles=False, device="cpu")
-        assert db.lmax == 8192 and db.buckets[-1] == 8192
-        assert db.prof.shape[2] == 8192
-    else:
-        with pytest.raises(ValueError, match="at most 8192 columns"):
-            batched.DeviceDB(ecs, p, with_rev_profiles=False, device="cpu")
+    db = batched.DeviceDB(ecs, p, with_rev_profiles=False, device="cpu")
+    want = -(-n // 256) * 256
+    assert want == (8192 if n == 8192 else 8448)
+    assert db.lmax == want and db.buckets[-1] == want
+    assert db.prof.shape[2] == want and db.coords.shape[1] == want
 
 
 def test_mu_lanes_at_the_largest_bucket():
