@@ -8,12 +8,14 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --stage1    # phases 0-1, the replica's stage 1
     python3 chip_smoke.py --walk      # phases 0-1, the walk alone
     python3 chip_smoke.py --sweep     # phases 0-1, the float sweep alone
-    python3 chip_smoke.py --gcol      # phases 0-1, sw_align short vs long
     python3 chip_smoke.py --sass [NAME]   # phases 0-1, kernels' SASS opcodes
     python3 chip_smoke.py --bench-cmds    # phases 0-1, then phase 10
     python3 chip_smoke.py --io-cmds       # phases 0-1, then phase 11
     python3 chip_smoke.py --msa-cmds      # phases 0-1, then phase 12
     python3 chip_smoke.py --long          # phases 0-1, then phase 13
+    python3 chip_smoke.py --long --parent DIR   # and the band entries'
+                                          # times in the tree at DIR
+    python3 chip_smoke.py --bands     # phases 0-1, the band kernel's rules
 
 Phases, in order; any failure exits non-zero and prints no result:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -101,16 +103,28 @@ Phases, in order; any failure exits non-zero and prints no result:
      of 8,000 and 12,000 residues made of q100 chains end to end, and the
      12,000-residue one with 0.25 A noise (seed 17), beside the 8
      shortest q100 chains.  Each long-column variant at a shape the main
-     path gives it (sw_align and sw_score_profiles at the 8,000 x 12,000
-     pairs' 2 x 8,192 x 16,384, several passes of row tiles; the Mu
-     filter at the legacy bucket, 2 x 12,032 x 12,032; LDDT at 2 x
-     12,000) against its plain version (bit-equal; LDDT within 1e-6),
-     and the walk on that traceback; the device self-reversal scores
-     equal to the host's; the self-search and the 12,000-residue query
-     against the 11 chains byte-equal to the host engine, every long
-     chain with its self hit; the legacy engine (sensitive filters, MKF
-     routing off) on the two long chains and the 8 short ones equal to
-     the host PairAligner pair for pair.
+     path gives it (sw_align and sw_score_profiles, the band kernel, at
+     the 8,000 x 12,000 pairs' 2 x 8,192 x 16,384, and score only at the
+     self-rev's 1 x 16,384 x 16,384; the Mu filter at the legacy bucket,
+     2 x 12,032 x 12,032; LDDT at 2 x 12,000) against its plain version
+     (bit-equal; LDDT within 1e-6), the band kernels also on tie-prone
+     random pairs (3 x 600 x 8,448: a best cell repeated in two bands, a
+     pair with no positive cell, two-letter features) and below the
+     column limit on stage-3 chunks of the long chains (8 x 8,192 x
+     8,192 at R = 4, 32 x 4,096 x 512 at R = 8), with their rows a lane,
+     band height, blocks in flight, SMs a pair and chain bound, and the
+     walk on the first gate's traceback; the device
+     self-reversal scores equal to the host's; the self-search and the
+     12,000-residue query against the
+     11 chains and one of 20,000 residues (stage-3 edge 32,768)
+     byte-equal to the host engine, every long chain with its self hit;
+     the legacy engine (sensitive filters, MKF routing off) on the two
+     long chains and the 8 short ones equal to the host PairAligner pair
+     for pair.  With --parent DIR, first the band entries' times in the
+     tree at DIR and in this one, each in a subprocess.
+--bands times the band kernel against the shared-memory kernel, and its
+R = 4 against R = 8, at BAND_SHAPES (phase_bands), the rules of
+ops/sw_align.py's sw_align_uses_bands and rows_per_lane.
 Each kernel must have been launched by the run of the phase that KERNELS
 names for it (counts set to 0 just before that run, read just after);
 the query, -fast, mesh and phase 11's searches must launch every
@@ -127,6 +141,7 @@ byte-equal to reseek_tpu's.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import io
 import json
@@ -189,6 +204,28 @@ SEARCH_KERNELS = ("mu_sweep", "sw_align", "walk_traceback", "lddt")
 LONG_LENGTHS = (8000, 12000)
 LONG_GAP = 50.0
 LONG_MODE = "verysensitive"
+# phase 13: the chain of ~20,000 residues added to the searches (stage-3
+# edge 32,768), and the tie-prone band gates' shape: 3 pairs of 600 rows
+# (5 bands of 128, the last of 88) x 8,448 columns, the best cell of the
+# first pair in two bands
+LONG_XL = 20000
+TIE_SHAPE = (3, 600, 8448)
+# --bands: the shapes (pairs, LA, LB) at which sw_align ("align") and
+# sw_score_profiles ("score") run by the shared-memory kernel (up to 8,192
+# columns) and by the band kernel at R = 4 and R = 8: phase 2's largest
+# stage-3 chunk and self-rev batch, stage-3 chunks at edges 4,096 and
+# 8,192 (one to eight pairs), rectangular ones of short columns up to the
+# most pairs a chunk past 2,048 rows holds (2^26 cells), phase 13's gate
+# shape and the self-rev's
+BAND_SHAPES = ((213, 512, 512, ("align",)), (37, 512, 512, ("score",)),
+               (1, 8192, 8192, ("align",)), (8, 8192, 8192, ("align",)),
+               (8, 4096, 4096, ("align",)), (32, 4096, 512, ("align",)),
+               (128, 4096, 128, ("align",)), (64, 8192, 128, ("align",)),
+               (64, 4096, 256, ("align",)), (32, 8192, 256, ("align",)),
+               (2, 4096, 256, ("align",)), (16, 8192, 512, ("align",)),
+               (2, 4096, 512, ("align",)), (16, 4096, 1024, ("align",)),
+               (2, 8192, 16384, ("align", "score")),
+               (1, 16384, 16384, ("align", "score")))
 # long-column variant -> (CUDA source, the TPU kernel it replaces, the
 # run of phase 13 that must launch it)
 LONG_KERNELS = {
@@ -222,6 +259,10 @@ LDDT_PAIR_OPS = 24
 # the walk's chain bound: one shared-memory load-to-use latency a step, an
 # estimate in SM cycles (the card's maximum SM clock from nvidia-smi)
 SMEM_LATENCY_CYCLES = 30
+# the SW wavefront's chain bound: LA + LB dependent cells of the gap
+# extension's add, compare and select (E down a column, F along a row),
+# ~4 cycles each, an estimate
+CELL_CHAIN_CYCLES = 12
 # the device spin that time_ms queues its calls behind (~10 ms)
 SPIN_CYCLES = 20_000_000
 
@@ -832,7 +873,7 @@ def phase_walk_paths(pipe) -> None:
               le - 16)
     nf = pipe.prof.shape[1]
     for la in (400, 1100):
-        cut = 32 * rows_per_lane(la)
+        cut = 32 * rows_per_lane(la, la + 100)
         src = int(torch.nonzero(lens >= la).flatten()[0])
         a = pipe.prof[src, :, :la].cpu().numpy()
         ins = np.stack([rng.integers(0, n, 100) for n in pipe.table.sizes])
@@ -1000,46 +1041,6 @@ def phase_sweep_alone(pipe, survivors, reps: int = 5) -> None:
     print(f"[p1] float sweep at {(len(ia), le, le)}, "
           f"{'fed S' if fed_s else 'fed the profiles'}: "
           + json.dumps({k: [round(x, 4) for x in v] for k, v in got.items()}))
-
-
-def phase_gcol(pipe, survivors, reps: int = 20) -> None:
-    """sw_align at the largest q100 stage-3 chunk and sw_score_profiles at
-    the largest self-reversal batch (phase 2's shapes), each by its
-    shared-memory kernel and by its long variant (the column words in
-    device memory, forced by a column limit of 0), in turns: short, long,
-    long, short.  The two must agree bit for bit."""
-    from reseek_tpu_torch.ops import sw_align as swm
-    p = pipe.params
-    go, ge = float(p.gap_open), float(p.gap_ext)
-    lea, leb, _chunk, ia, ib = max(pipe.stage3_plan(survivors),
-                                   key=lambda c: len(c[3]) * c[0] * c[1])
-    own = pipe.order[:pipe.dev_end]
-    le, _rows, ra, rb = max(pipe.stage2_plan(np.stack([own, own], 1)),
-                            key=lambda c: len(c[2]) * c[0] * c[0])
-    runs = {
-        f"sw_align {(len(ia), lea, leb)}": functools.partial(
-            swm.sw_align, pipe.prof, ia, ib, pipe.table, lea, leb, go, ge),
-        f"sw_score {(len(ra), le, le)}": functools.partial(
-            swm.sw_score_profiles, pipe.prof, pipe.prof_rev, ra, rb,
-            pipe.table, le, le, go, ge)}
-    limit = swm.MAX_LB
-    for name, fn in runs.items():
-        got, ms = {}, {"short": [], "long": []}
-        for kind in ("short", "long", "long", "short"):
-            swm.MAX_LB = 0 if kind == "long" else limit
-            try:
-                got[kind] = fn()
-                ms[kind].append(time_ms(fn, reps))
-            finally:
-                swm.MAX_LB = limit
-        same = all(torch.equal(x, y) for x, y in zip(
-            *(v if isinstance(v, tuple) else (v,) for v in got.values())))
-        if not same:
-            fail(f"{name}: the long variant differs from the short kernel")
-        ratio = statistics.mean(ms["long"]) / statistics.mean(ms["short"])
-        print(f"[g] {name}: short {[round(x, 4) for x in ms['short']]} ms, "
-              f"long {[round(x, 4) for x in ms['long']]} ms, long / short "
-              f"{ratio:.4f}; bit-equal")
 
 
 def phase_stage1(chains, reps: int = 7) -> None:
@@ -2107,32 +2108,195 @@ def phase_legacy(chains, db) -> dict:
     return counts
 
 
-def long_chains(base):
-    """Phase 13's long chains, made from ``base`` (the q100 chains) alone:
+def long_chain(base, n: int, label: str):
+    """A chain of ``n`` residues made from ``base`` (the q100 chains) alone:
     the chains end to end, each piece translated LONG_GAP clear of the
-    last along x, cut at each of LONG_LENGTHS residues (labels long<n>),
-    and a copy of the longest with replica()'s noise (seed REPLICA_SEED,
-    REPLICA_NOISE A; label long<n>/r1)."""
+    last along x, cut at n."""
     from reseek_tpu_torch.chain import Chain
-    out = []
-    for n in LONG_LENGTHS:
-        seqs, xyz, end, k = [], [], None, 0
-        while sum(map(len, seqs)) < n:
-            c = base[k % len(base)]
-            k += 1
-            x = c.coords.astype(np.float64)
-            if end is not None:
-                x[:, 0] += end + LONG_GAP - x[:, 0].min()
-            end = x[:, 0].max()
-            seqs.append(c.seq)
-            xyz.append(x)
-        out.append(Chain(f"long{n}", "".join(seqs)[:n],
-                         np.concatenate(xyz)[:n]))
+    seqs, xyz, end, k = [], [], None, 0
+    while sum(map(len, seqs)) < n:
+        c = base[k % len(base)]
+        k += 1
+        x = c.coords.astype(np.float64)
+        if end is not None:
+            x[:, 0] += end + LONG_GAP - x[:, 0].min()
+        end = x[:, 0].max()
+        seqs.append(c.seq)
+        xyz.append(x)
+    return Chain(label, "".join(seqs)[:n], np.concatenate(xyz)[:n])
+
+
+def long_chains(base):
+    """Phase 13's long chains: one of each of LONG_LENGTHS residues (labels
+    long<n>, long_chain), and a copy of the longest with replica()'s
+    noise (seed REPLICA_SEED, REPLICA_NOISE A; label long<n>/r1)."""
+    from reseek_tpu_torch.chain import Chain
+    out = [long_chain(base, n, f"long{n}") for n in LONG_LENGTHS]
     top = out[-1]
     rng = np.random.default_rng(REPLICA_SEED)
     noise = rng.normal(0, REPLICA_NOISE, top.coords.shape).astype(np.float32)
     out.append(Chain(top.label + "/r1", top.seq, top.coords + noise))
     return out
+
+
+def long_pipe(base):
+    """Phase 13's kernel-gate engine: the long chains beside the 8 shortest
+    of ``base`` (sorted short[:4] + long + short[4:]) on DEVICE ->
+    (pipe, chains, long chains, {label: index})."""
+    from reseek_tpu_torch.constants import DSSParams
+    from reseek_tpu_torch.search.engine import DeviceSelfSearch
+    from reseek_tpu_torch.search.host import _encode_all
+    longs = long_chains(base)
+    short = sorted(base, key=len)[:8]
+    chains = short[:4] + longs + short[4:]
+    params = DSSParams.create(LONG_MODE)
+    ecs = _encode_all(chains, params, with_self_rev=False)
+    pipe = DeviceSelfSearch(ecs, params, device=DEVICE)
+    return pipe, chains, longs, {c.label: i for i, c in enumerate(chains)}
+
+
+def long_kernel_times(reps: int = 5) -> None:
+    """The band entries (sw_align, sw_score_profiles past 8,192 columns)
+    timed at phase 13's gate shape, 2 x 8,192 x 16,384, sw_score at the
+    B = 1 self-rev shape and sw_align at the 8,000-residue pair's 1 x
+    8,192 x 8,192 and on 8 pairs of the long chains at that edge (a full
+    stage-3 chunk there), by whichever reseek_tpu_torch is first on
+    sys.path: phase 13's --parent runs it on another tree's package in a
+    subprocess.  Prints one JSON line: {name: {"ms", "digest"}}, the
+    digest of the best scores and cells."""
+    import hashlib
+    from reseek_tpu_torch.device import disable_tf32
+    from reseek_tpu_torch.io.reader import read_chains
+    from reseek_tpu_torch.ops.sw_align import sw_align, sw_score_profiles
+    disable_tf32()
+    pipe, _chains, longs, at = long_pipe(read_chains(Q100))
+    p = pipe.params
+    go, ge = float(p.gap_open), float(p.gap_ext)
+    a_orig = [at[longs[0].label], at[longs[2].label]]
+    b_orig = [at[longs[1].label]] * 2
+    ia, ib = pipe._sorted_idx(np.asarray(a_orig)), pipe._sorted_idx(
+        np.asarray(b_orig))
+    la = int(pipe._edge_of(pipe.lens[a_orig[:1]])[0])
+    lb = int(pipe.prof.shape[2])
+    one = pipe._sorted_idx(np.asarray(b_orig[:1]))
+    idx = sorted(set(a_orig) | set(b_orig))
+    pairs = np.asarray([(x, y) for x in idx for y in idx][:8])
+    ia8, ib8 = (pipe._sorted_idx(pairs[:, k]) for k in (0, 1))
+    runs = {
+        "sw_align_long": lambda: sw_align(pipe.prof, ia, ib, pipe.table, la,
+                                          lb, go, ge),
+        "sw_score_long": lambda: sw_score_profiles(
+            pipe.prof, pipe.prof, ia, ib, pipe.table, la, lb, go, ge),
+        "sw_score_long_b1": lambda: sw_score_profiles(
+            pipe.prof, pipe.prof_rev, one, one, pipe.table, lb, lb, go, ge),
+        "sw_align_8192": lambda: sw_align(pipe.prof, ia[:1], ia[:1],
+                                          pipe.table, la, la, go, ge),
+        "sw_align_8x8192": lambda: sw_align(pipe.prof, ia8, ib8, pipe.table,
+                                            la, la, go, ge)}
+    out = {}
+    for name, fn in runs.items():
+        got = fn()
+        got = got[:3] if isinstance(got, tuple) else (got,)
+        digest = hashlib.sha256(b"".join(
+            x.cpu().numpy().tobytes() for x in got)).hexdigest()[:16]
+        out[name] = {"ms": time_ms(fn, reps), "digest": digest}
+    print(json.dumps(out))
+
+
+def tree_long_times(tree: str) -> dict:
+    """long_kernel_times on the repository tree at ``tree`` (its own
+    package and kernels, this script's code), in a subprocess."""
+    code = ("import importlib.util, sys; sys.path.insert(0, '.'); "
+            "spec = importlib.util.spec_from_file_location('probe', "
+            f"{os.path.abspath(__file__)!r}); "
+            "m = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(m); m.long_kernel_times()")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                         capture_output=True, text=True, timeout=900)
+    if out.returncode != 0:
+        fail(f"the band entries' times in {tree}: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def phase_bands(base, reps: int = 5) -> None:
+    """The band kernel's two rules measured: at each of BAND_SHAPES, on
+    pairs of phase 13's long chains (long_pipe; the self-rev's profiles
+    for score only at B = 1), each kind by the shared-memory kernel (up to
+    MAX_LB columns, at its own R) and by the band kernel at R = 4 and at
+    R = 8, forced by replacing ops/sw_align.py's sw_align_uses_bands and
+    rows_per_lane, in turns, forward then back.  All must give the same
+    best (and cells); the tracebacks of one R the same bytes.  One line a shape and kind: the times and each band plan with
+    its blocks in flight and SMs a pair."""
+    from reseek_tpu_torch.ops import sw_align as swm
+    pipe, _chains, longs, at = long_pipe(base)
+    p = pipe.params
+    go, ge = float(p.gap_open), float(p.gap_ext)
+    idx = [at[c.label] for c in longs]
+    combos = [(x, y) for x in idx for y in idx]
+    rule = (swm.sw_align_uses_bands, swm.rows_per_lane)
+    variants = ("short", "bands R=4", "bands R=8")
+
+    @contextlib.contextmanager
+    def forced(kind):
+        # the shared-memory kernel keeps rows_per_lane's rule for it
+        bands = kind != "short"
+        swm.sw_align_uses_bands = lambda la, lb: bands
+        if bands:
+            swm.rows_per_lane = lambda la, lb, r=int(kind[-1]): r
+        try:
+            yield
+        finally:
+            swm.sw_align_uses_bands, swm.rows_per_lane = rule
+
+    def runner(kind, call):
+        def run():
+            with forced(kind):
+                return call(None)
+        return run
+
+    for b, la, lb, kinds in BAND_SHAPES:
+        pairs = np.asarray([combos[k % len(combos)] for k in range(b)])
+        ia, ib = (pipe._sorted_idx(pairs[:, k]) for k in (0, 1))
+        for what in kinds:
+            if what == "align":
+                def call(stats, args=(pipe.prof, ia, ib, pipe.table, la, lb,
+                                      go, ge)):
+                    return swm.sw_align(*args, stats=stats)
+            else:
+                side = pipe.prof_rev if b == 1 else pipe.prof
+                rib = ia if b == 1 else ib
+
+                def call(stats, args=(pipe.prof, side, ia, rib, pipe.table,
+                                      la, lb, go, ge)):
+                    return (swm.sw_score_profiles(*args, stats=stats),)
+            names = [v for v in variants
+                     if v != "short" or lb <= swm.MAX_LB]
+            runs = {v: runner(v, call) for v in names}
+            got = {v: runs[v]() for v in names}
+            if not all(torch.equal(x, y) for v in names
+                       for x, y in zip(got[v][:3], got[names[0]][:3])):
+                fail(f"--bands {what} at {(b, la, lb)}: the variants' best "
+                     "differ")
+            tbs = [got[v][3] for v in names if what == "align"]
+            if any(x.shape == y.shape and not torch.equal(x, y)
+                   for x in tbs for y in tbs):
+                fail(f"--bands align at {(b, la, lb)}: two tracebacks of "
+                     "one R differ")
+            ms = {v: [] for v in names}
+            for v in names + names[::-1]:
+                ms[v].append(time_ms(runs[v], reps))
+            plans = {}
+            for v in names[int(names[0] == "short"):]:
+                st = torch.empty(swm.band_stats_words(b), dtype=torch.int32,
+                                 device=DEVICE)
+                with forced(v):
+                    call(st)
+                    plans[v] = swm.band_stats(st, b, la, lb)
+            print(f"[b] {what} {(b, la, lb)}: rule "
+                  f"{'bands' if rule[0](la, lb) else 'short'} R="
+                  f"{rule[1](la, lb)}; ms " + json.dumps(
+                      {v: [round(x, 4) for x in t] for v, t in ms.items()})
+                  + "; plans " + json.dumps(plans))
 
 
 def once_ms(fn):
@@ -2146,6 +2310,61 @@ def once_ms(fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def tie_prone_profiles(table, n: int, la: int, lb: int, seed: int):
+    """Profiles [2n, F, max(la, lb)] uint8 on DEVICE for n pairs (A side
+    row 2k, B side 2k+1), PAD_BYTE past each chain's end: pair 0's B side
+    ~la/2 random letters and its A side two copies of them end to end, so
+    that its best score comes twice, ~la/2 rows apart (different bands);
+    pair 1's A side all padding (no positive cell); the others two letters
+    a feature (cells tie everywhere), ragged lengths."""
+    rng = np.random.default_rng(seed)
+    nf, length = len(table.sizes), max(la, lb)
+    prof = np.full((2 * n, nf, length), 255, np.uint8)
+    half = la // 2
+    x = rng.integers(0, np.array(table.sizes)[:, None], (nf, half))
+    prof[1, :, :half] = x
+    prof[0, :, :half] = prof[0, :, half:2 * half] = x
+    for k in range(2, n):
+        for side, top in ((2 * k, la), (2 * k + 1, lb)):
+            m = int(rng.integers(top // 2, top + 1))
+            prof[side, :, :m] = rng.integers(0, 2, (nf, m))
+    prof[3, :, :lb] = rng.integers(0, np.array(table.sizes)[:, None],
+                                   (nf, lb))
+    return torch.from_numpy(prof).to(DEVICE)
+
+
+def phase_long_ties(pipe, gate, same, equal) -> None:
+    """Phase 13, the band kernels on tie-prone inputs (tie_prone_profiles
+    at TIE_SHAPE): sw_align_long and sw_score_long bit-equal to their
+    plain versions, pair 0's best cell in the first of its two copies."""
+    from reseek_tpu_torch.ops.sw_align import (sw_align, sw_align_ref,
+                                               sw_score_profiles,
+                                               sw_score_profiles_ref)
+    n, la, lb = TIE_SHAPE
+    p = pipe.params
+    go, ge = float(p.gap_open), float(p.gap_ext)
+    prof = tie_prone_profiles(pipe.table, n, la, lb, REPLICA_SEED)
+    ia = torch.arange(0, 2 * n, 2, device=DEVICE)
+    ib = ia + 1
+    nf, tab = prof.shape[1], 4 * pipe.table.blocks.numel()
+    cells = n * la * lb
+    args = (prof, ia, ib, pipe.table, la, lb, go, ge)
+    best, bi, _bj, _tb = gate(
+        "sw_align_long", lambda: sw_align(*args), lambda: sw_align_ref(*args),
+        same, TIE_SHAPE, n * nf * (la + lb) + tab + cells // 2 + 12 * n,
+        cells * CELL_OPS["sw_align"], key="sw_align_long_ties")
+    if not (best[0] > 0 and int(bi[0]) < la // 2 and best[1] == 0):
+        fail(f"tie-prone gate: pair 0's best {best[0]} at row {bi[0]}, "
+             f"pair 1's {best[1]}")
+    sargs = (prof, prof, ia, ib, pipe.table, la, lb, go, ge)
+    score = gate("sw_score_long", lambda: sw_score_profiles(*sargs),
+                 lambda: sw_score_profiles_ref(*sargs), equal, TIE_SHAPE,
+                 n * nf * (la + lb) + tab + 4 * n,
+                 cells * CELL_OPS["sw_score"], key="sw_score_long_ties")
+    if not torch.equal(score, best):
+        fail("tie-prone gate: sw_score_long differs from sw_align_long")
 
 
 def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
@@ -2168,7 +2387,8 @@ def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
                                                 lddt_cluster,
                                                 walk_traceback_batch,
                                                 walk_traceback_batch_ref)
-    from reseek_tpu_torch.ops.sw_align import (sw_align, sw_align_ref,
+    from reseek_tpu_torch.ops.sw_align import (band_stats, band_stats_words,
+                                               sw_align, sw_align_ref,
                                                sw_score_profiles,
                                                sw_score_profiles_ref)
     from reseek_tpu_torch.ops.sw_sweep import (mu_lane_bits, mu_sw_scores,
@@ -2176,10 +2396,13 @@ def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
     p = pipe.params
     res = {}
 
-    def gate(name, got_fn, plain_fn, equal, shape, nbytes, ops, reps=3):
+    def gate(name, got_fn, plain_fn, equal, shape, nbytes, ops, reps=3,
+             key=None, chain=None):
         """Run the kernel (its variant counted), then the plain version
         once; fail unless ``equal(got, want)`` (-> max_abs_err or None);
-        time the kernel and keep its bound."""
+        time the kernel and keep its bound (and, for a band kernel, the
+        chain bound from the longest pair's LA + LB cells, and its plan
+        and stats from one more call, got_fn(stats)) under ``key``."""
         with Launches() as n:
             got = got_fn()
             torch.cuda.synchronize()
@@ -2189,13 +2412,23 @@ def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
         if err is None:
             fail(f"{name} != plain at {shape}")
         b, by = bound(nbytes, ops)
-        res[name] = {"max_abs_err": float(err), "ms": time_ms(got_fn, reps),
-                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                     "shape": shape}
-        r = res[name]
-        print(f"[13] {name} at {shape}: equal to the plain version (err "
+        key = key or name
+        res[key] = r = {"max_abs_err": float(err),
+                        "ms": time_ms(got_fn, reps), "plain_ms": plain_ms,
+                        "bound_ms": b, "bound_by": by, "shape": shape}
+        extra = ""
+        if chain is not None:
+            r["chain_bound_ms"] = chain * CELL_CHAIN_CYCLES / sm_clock_hz() \
+                * 1e3
+            st = torch.empty(band_stats_words(shape[0]), dtype=torch.int32,
+                             device=DEVICE)
+            got_fn(st)
+            r["bands"] = band_stats(st, *shape)
+            extra = (f", chain bound {r['chain_bound_ms']:.4f} ms; "
+                     f"bands {json.dumps(r['bands'])}")
+        print(f"[13] {key} at {shape}: equal to the plain version (err "
               f"{r['max_abs_err']:.3g}); kernel {r['ms']:.3f} ms, plain "
-              f"{plain_ms:.1f} ms (once), bound {b:.4f} ms ({by})")
+              f"{plain_ms:.1f} ms (once), bound {b:.4f} ms ({by}){extra}")
         return got
 
     def same(got, want):
@@ -2212,13 +2445,14 @@ def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
     # the cells up to the chains' ends (no other cell can raise the best)
     len_a, len_b = pipe.lens[a_orig], pipe.lens[b_orig]
     real = int((np.minimum(len_a, la) * np.minimum(len_b, lb)).sum())
+    chain = int((np.minimum(len_a, la) + np.minimum(len_b, lb)).max())
     tab = 4 * pipe.table.blocks.numel()
     args = (pipe.prof, ia, ib, pipe.table, la, lb, go, ge)
     best, bi, bj, tb = gate(
-        "sw_align_long", lambda: sw_align(*args), lambda: sw_align_ref(*args),
-        same, (nb, la, lb), nb * nf * (la + lb) + tab + cells // 2 + 12 * nb,
-        real * CELL_OPS["sw_align"])
-    print(f"[13] sw_align_long / sw_score_long: {tb.shape[1]} row tiles of "
+        "sw_align_long", lambda st=None: sw_align(*args, stats=st),
+        lambda: sw_align_ref(*args), same, (nb, la, lb), nb * nf * (la + lb) + tab + cells // 2 + 12 * nb,
+        real * CELL_OPS["sw_align"], chain=chain)
+    print(f"[13] sw_align_long / sw_score_long: {tb.shape[1]} bands of "
           f"{32 * 2 * tb.shape[4]} rows a pair; cells to the chains' ends "
           f"{real}")
 
@@ -2235,13 +2469,55 @@ def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
           f"{time_ms(walk_fn, 5):.3f} ms, plain {walk_plain_ms:.1f} ms "
           f"(once)")
     sargs = (pipe.prof, pipe.prof, ia, ib, pipe.table, la, lb, go, ge)
+
+    def equal(g, w):
+        return 0.0 if torch.equal(g, w) else None
+
     score = gate(
-        "sw_score_long", lambda: sw_score_profiles(*sargs),
-        lambda: sw_score_profiles_ref(*sargs),
-        lambda g, w: 0.0 if torch.equal(g, w) else None, (nb, la, lb),
-        nb * nf * (la + lb) + tab + 4 * nb, real * CELL_OPS["sw_score"])
+        "sw_score_long", lambda st=None: sw_score_profiles(*sargs, stats=st),
+        lambda: sw_score_profiles_ref(*sargs), equal, (nb, la, lb),
+        nb * nf * (la + lb) + tab + 4 * nb, real * CELL_OPS["sw_score"],
+        chain=chain)
     if not torch.equal(score, best):
         fail("sw_score_long differs from sw_align_long's best")
+    # the self-rev shape, one pair: the 12,000-residue chain against its
+    # reversed profile at its edge, square
+    one = ib[:1]
+    n12 = int(len_b[0])
+    rargs = (pipe.prof, pipe.prof_rev, one, one, pipe.table, lb, lb, go, ge)
+    gate("sw_score_long", lambda st=None: sw_score_profiles(*rargs, stats=st),
+         lambda: sw_score_profiles_ref(*rargs), equal, (1, lb, lb),
+         nf * 2 * lb + tab + 4, n12 * n12 * CELL_OPS["sw_score"],
+         key="sw_score_long_b1", chain=2 * n12)
+    # below the column limit, where the band kernel takes the place of
+    # passes on one SM: a stage-3 chunk at edge 8,192 (up to 8 pairs, 2^26
+    # cells; R = 4) and a rectangular one of 4,096 x 512 (32 pairs; R = 8),
+    # pairs of the long chains
+    idx = sorted(set(a_orig) | set(b_orig))
+    combos = [(x, y) for x in idx for y in idx]
+    for n, ea, eb in ((8, la, la), (32, la // 2, 512)):
+        pairs = np.asarray([combos[k % len(combos)] for k in range(n)])
+        sa, sb = (pipe._sorted_idx(pairs[:, k]) for k in (0, 1))
+        ra = np.minimum(pipe.lens[pairs[:, 0]], ea)
+        rb = np.minimum(pipe.lens[pairs[:, 1]], eb)
+        margs = (pipe.prof, sa, sb, pipe.table, ea, eb, go, ge)
+        mid = gate("sw_align_long",
+                   lambda st=None, a=margs: sw_align(*a, stats=st),
+                   lambda a=margs: sw_align_ref(*a), same, (n, ea, eb),
+                   n * nf * (ea + eb) + tab + n * ea * eb // 2 + 12 * n,
+                   int((ra * rb).sum()) * CELL_OPS["sw_align"],
+                   key=f"sw_align_long_{n}x{ea}x{eb}",
+                   chain=int((ra + rb).max()))
+        with Launches() as launched:
+            mid_score = sw_score_profiles(pipe.prof, pipe.prof, sa, sb,
+                                          pipe.table, ea, eb, go, ge)
+            torch.cuda.synchronize()
+        launched.require(["sw_score_long"],
+                         f"the score-only band gate at {(n, ea, eb)}")
+        if not torch.equal(mid_score, mid[0]):
+            fail("sw_score_long differs from sw_align_long's best at "
+                 f"{(n, ea, eb)}")
+    phase_long_ties(pipe, gate, same, equal)
 
     o, e = -float(p.para_mu_gap_open), -float(p.para_mu_gap_ext)
     mt = pipe.mu_table
@@ -2288,17 +2564,22 @@ def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
     return res
 
 
-def phase_long(base):
+def phase_long(base, parent=None):
     """Phase 13: --verysensitive past the kernels' column limits, on long
     chains made from q100 (long_chains) beside the 8 shortest q100
-    chains.  The kernel gates (phase_long_kernels); the self-search and a
-    query search of the longest chain through the port's entry points
-    (engine="device", device="cuda") byte-equal to the host engine, every
-    long chain with its self hit; the device self-reversal scores equal to
-    the host's; the legacy engine (sensitive filters, MKF routing off: the
-    Mu filter runs) equal to the host PairAligner pair for pair.  Each run
-    must launch its long variants (LONG_KERNELS).  Walls and peak device
-    memory.  Returns (kernel results, {run: launch counts})."""
+    chains.  The kernel gates (phase_long_kernels); with ``parent`` (a
+    directory holding another tree of the repository) first the band
+    entries' times there and here (long_kernel_times, each in a
+    subprocess, parent then this tree).  The self-search and a query
+    search of the 12,000-residue chain through the port's entry points
+    (engine="device", device="cuda"), with a chain of LONG_XL residues
+    added (stage-3 edge 32,768), byte-equal to the host engine, every
+    long chain with its self hit; the device self-reversal scores equal
+    to the host's; the legacy engine (sensitive filters, MKF routing off:
+    the Mu filter runs) equal to the host PairAligner pair for pair.
+    Each run must launch its long variants (LONG_KERNELS).  Walls and
+    peak device memory.  Returns (kernel results, {run: launch
+    counts})."""
     import dataclasses
     from reseek_tpu_torch.align.output import parse_columns
     from reseek_tpu_torch.align.pipeline import self_rev_score
@@ -2306,21 +2587,22 @@ def phase_long(base):
     from reseek_tpu_torch.search import driver as port
     from reseek_tpu_torch.search.batched import (BatchedEngine, DeviceDB,
                                                  batched_self_search)
-    from reseek_tpu_torch.search.engine import DeviceSelfSearch
     from reseek_tpu_torch.search.host import SearchOptions, _encode_all
     t_phase = time.perf_counter()
+    if parent is not None:
+        for tree in (parent, ROOT):
+            print(f"[13] band entries' times, {tree}: "
+                  f"{json.dumps(tree_long_times(tree))}")
     torch.cuda.reset_peak_memory_stats()
-    longs = long_chains(base)
+    pipe, chains, longs, at = long_pipe(base)
+    ecs, params = pipe.ecs, pipe.params
     short = sorted(base, key=len)[:8]
-    chains = short[:4] + longs + short[4:]
     labels = [c.label for c in longs]
+    xl = long_chain(base, LONG_XL, f"long{LONG_XL}")
     print(f"[13] long chains {dict(zip(labels, map(len, longs)))} from "
-          f"q100, beside the 8 shortest q100 chains")
-    params = DSSParams.create(LONG_MODE)
-    ecs = _encode_all(chains, params, with_self_rev=False)
-    pipe = DeviceSelfSearch(ecs, params, device=DEVICE)
+          f"q100, beside the 8 shortest q100 chains; {xl.label} in the "
+          f"searches")
     print(f"[13] engine edges {pipe.edges}")
-    at = {c.label: i for i, c in enumerate(chains)}
     res = phase_long_kernels(pipe, [at[labels[0]], at[labels[2]]],
                              [at[labels[1]]] * 2, longs)
     launches = {}
@@ -2349,31 +2631,34 @@ def phase_long(base):
         torch.cuda.synchronize()
         return out.getvalue(), time.perf_counter() - t0
 
-    want, host_s = run(port.self_search, chains, engine="host")
+    searched = chains + [xl]
+    want, host_s = run(port.self_search, searched, engine="host")
     with Launches() as launched:
-        got, dev_s = run(port.self_search, chains, **dev)
+        got, dev_s = run(port.self_search, searched, **dev)
     if got != want:
         fail("long --verysensitive self-search differs from the host")
     rows = [line.split("\t") for line in got.splitlines()]
     selfs = {r[0] for r in rows if r[0] == r[1]}
-    if not set(labels) <= selfs:
+    if not set(labels + [xl.label]) <= selfs:
         fail(f"long self-search: {sorted(set(labels) - selfs)} lack a "
              "self hit")
     launched.require(["sw_align_long", "lddt_long", "walk_traceback"],
                      "the long self-search")
     launches["search"] = launched.counts
-    print(f"[13] --verysensitive self-search of {len(chains)} chains: "
+    print(f"[13] --verysensitive self-search of {len(searched)} chains: "
           f"{len(rows)} rows byte-equal to the host, every long chain's "
           f"self hit; device {dev_s:.2f} s, host {host_s:.2f} s; launches "
           f"{launched.counts}")
     query = [longs[1]]
-    want, host_s = run(port.query_search, query, chains, engine="host")
+    want, host_s = run(port.query_search, query, searched, engine="host")
     with Launches() as launched:
-        got, dev_s = run(port.query_search, query, chains, **dev)
+        got, dev_s = run(port.query_search, query, searched, **dev)
     if got != want or not got:
         fail("long --verysensitive query search differs from the host")
+    if xl.label not in {line.split("\t")[1] for line in got.splitlines()}:
+        fail(f"long query: no row against {xl.label}")
     launched.require(["sw_align_long", "lddt_long"], "the long query")
-    print(f"[13] --verysensitive query {labels[1]} x {len(chains)} chains: "
+    print(f"[13] --verysensitive query {labels[1]} x {len(searched)} chains: "
           f"{len(got.splitlines())} rows byte-equal to the host; device "
           f"{dev_s:.2f} s, host {host_s:.2f} s; launches {launched.counts}")
 
@@ -2412,14 +2697,16 @@ def phase_long(base):
 def long_entries(res: dict, launches: dict) -> list:
     """The ``kernels`` line's entries of the long-column variants: phase
     13's gate results, the launches of the run LONG_KERNELS names and of
-    the legacy run."""
+    the legacy run; the band kernels' chain bound and bands."""
     return [{"name": k, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[run][k],
              "max_abs_err": res[k]["max_abs_err"], "ms": res[k]["ms"],
              "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound_ms"],
              "bound_by": res[k]["bound_by"], "library_ms": None,
              "shape": res[k]["shape"],
-             "legacy_launches": launches["legacy"][k]}
+             "legacy_launches": launches["legacy"][k],
+             **{x: res[k][x] for x in ("chain_bound_ms", "bands")
+                if x in res[k]}}
             for k, (src, rep, run) in LONG_KERNELS.items()]
 
 
@@ -2471,11 +2758,19 @@ def main() -> int:
         phase_msa_cmds()
         phase_legacy(chains, replica(chains, REPLICA_CHAINS))
         return 0
-    if sys.argv[1:] == ["--long"]:
-        # phases 0-1, then the long chains alone
-        long_res, long_launches = phase_long(chains)
+    if sys.argv[1:2] == ["--long"]:
+        # phases 0-1, then the long chains alone; --long --parent DIR also
+        # times the band entries of the tree at DIR
+        parent = (sys.argv[3] if sys.argv[2:3] == ["--parent"]
+                  and len(sys.argv) > 3 else None)
+        long_res, long_launches = phase_long(chains, parent)
         print(card)
         print(json.dumps({"kernels": long_entries(long_res, long_launches)}))
+        return 0
+    if sys.argv[1:] == ["--bands"]:
+        # phases 0-1, then the band kernel against the shared-memory
+        # kernel and R = 4 against R = 8
+        phase_bands(chains)
         return 0
     if sys.argv[1:] == ["--stage1"]:
         # phases 0-1, then the replica's stage 1 alone (to compare two
@@ -2494,11 +2789,6 @@ def main() -> int:
     if sys.argv[1:] == ["--sweep"]:
         # phases 0-1, then the float sweep alone (to compare two versions)
         phase_sweep_alone(pipe, survivors)
-        return 0
-    if sys.argv[1:] == ["--gcol"]:
-        # phases 0-1, then sw_align's and sw_score's shared-memory kernels
-        # against their long variants at phase 2's shapes
-        phase_gcol(pipe, survivors)
         return 0
     res = phase_kernels(pipe, survivors)
     phase_tie_prone(pipe)

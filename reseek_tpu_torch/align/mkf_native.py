@@ -36,11 +36,13 @@ def _lib() -> Optional[ctypes.CDLL]:
             if (not os.path.exists(so_path)
                     or os.path.getmtime(so_path) < os.path.getmtime(_SRC)):
                 os.makedirs(cache_dir, exist_ok=True)
+                # per process: test workers build at once
+                tmp = f"{so_path}.{os.getpid()}.tmp"
                 subprocess.run(
                     ["g++", "-O2", "-march=native", "-shared", "-fPIC",
-                     _SRC, "-o", so_path + ".tmp"],
+                     _SRC, "-o", tmp],
                     check=True, capture_output=True)
-                os.replace(so_path + ".tmp", so_path)
+                os.replace(tmp, so_path)
             lib = ctypes.CDLL(so_path)
     except Exception:
         return None

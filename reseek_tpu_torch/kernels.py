@@ -56,12 +56,14 @@ _SIGNATURES = {
 }
 # the long-column variants: their short twin's arguments and one scratch
 # pointer more, before the stream (mu_wavefront_long: no lane-bits
-# argument, int32 only)
+# argument, int32 only; the band entries of sw_align.cu: the boundaries in
+# place of the pass scratch, then the column words, the work buffer and
+# the stats buffer or null)
 _SIGNATURES.update({
     "mu_wavefront_long": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "sw_align_long": _SIGNATURES["sw_align"][:-1] + [_P, _P],
-    "sw_score_profiles_long": _SIGNATURES["sw_score_profiles"][:-1] + [_P,
-                                                                       _P],
+    "sw_align_long": _SIGNATURES["sw_align"][:-1] + [_P, _P, _P, _P],
+    "sw_score_profiles_long": _SIGNATURES["sw_score_profiles"][:-1]
+    + [_P, _P, _P, _P],
     "lddt_long": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 })
 

@@ -24,19 +24,43 @@ substitution tensor): best [B] float32 only, the B side read from its own
 profile tensor; its plain version is ``profile_smx`` followed by
 ``sw_score_ref``.
 
-Both take any LB: up to MAX_LB columns the kernel stages each column's
-table offsets in shared memory; past it (``sw_align_uses_global``) the
-wrappers launch the kernel's long variant (the ``_long`` C entries), which
-reads them from a device-memory scratch and is otherwise the same code,
-and count those launches apart, on ``sw_align_long`` and
-``sw_score_long``.
+Both take any LB.  Up to MAX_LB columns the kernel is one block a pair
+with the column words (each B column's table offsets) in shared memory.
+Past it, and below it where that block would sweep a pair in passes
+over enough columns (``sw_align_uses_bands``: LA > 2,048 and LB >=
+256), the wrappers launch the band kernel, the
+``_long`` C entries, and count those launches apart, on
+``sw_align_long`` and ``sw_score_long``.  There a pair's tiles are
+bands, one block of one warp each, all running at once on many SMs
+(csrc/sw_align.cu's header):
+
+- handoff: band p's last lane writes H of its two last rows and E of its
+  last row, per column, to a boundary row in device memory that the
+  entry fills with a sentinel NaN first; band p+1 loads a group of
+  BAND_GROUP columns ahead and, at each group, waits until none of them
+  is the sentinel;
+- ordering: a block takes its (pair, band) from an atomic ticket in the
+  order blocks start, so it only ever waits on a band that started
+  before it;
+- fold: each band writes its best cell (or its maximum) to the work
+  buffer, and the last band of a pair to finish folds them in any order,
+  since ``better`` (larger score, then smaller i, then smaller j) is a
+  total order.
+
+The band kernel's rows a lane (``rows_per_lane``: 4 from 1,024 columns,
+else 8) and so its band height follow the shape alone, not the pair
+count; the traceback keeps its layout (``tb_shape``) for the R chosen.
+Given a stats buffer, the band kernel also records the blocks in flight
+and the SMs each pair ran on, which ``band_stats`` reads.
+tests/test_torch_long.py runs the same protocol in Python against the
+plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -50,33 +74,101 @@ MAX_LB = 8192         # B columns the kernel stages in shared memory
 KERNEL_WARPS = 8      # tiles the kernel sweeps at once, one warp each
 MAX_PENALTY = 512.0   # |open|, |ext| below NEG's float32 spacing / 2
 MAX_TABLE_FLOATS = 16383   # the kernel's 16-bit byte offsets into them
+# the band kernel below MAX_LB columns: from this many columns where the
+# A side passes 2,048 rows; its 4 rows a lane from BAND_R4_COLS columns
+# (8 below); the words of a pair's SM mask in its stats buffer
+# (csrc/sw_align.cu: stats_words)
+BAND_MIN_COLS = 256
+BAND_R4_COLS = 1024
+SM_WORDS = 8
 
 
-# launch counts of the long variants (LB > MAX_LB)
+# launch counts of the band kernel's entries (sw_align_uses_bands)
 sw_align_long = kernels.variant("sw_align_long")
 sw_score_long = kernels.variant("sw_score_long")
 
 
 def sw_align_uses_global(lb: int) -> bool:
-    """Whether sw_align and sw_score_profiles at LB columns take the
-    kernel's long variant (the column words in device memory)."""
+    """Whether LB columns exceed the shared-memory kernel's column words
+    (so that sw_align and sw_score_profiles take the band kernel)."""
     return lb > MAX_LB
 
 
-def _column_words(b: int, lb: int, device) -> torch.Tensor:
-    """The long variant's scratch: a 16-byte word a B column a pair."""
-    return torch.empty((b, lb, 16), dtype=torch.uint8, device=device)
+def sw_align_uses_bands(la: int, lb: int) -> bool:
+    """Whether sw_align and sw_score_profiles on [la, lb] take the band
+    kernel: past MAX_LB columns always; below, where the shared-memory
+    kernel would sweep a pair's tiles in passes on one SM (LA > 2,048 at
+    8 rows a lane) over at least BAND_MIN_COLS columns.  At 128 columns
+    a pair's bands, starting ~47 steps apart, take longer than its passes
+    (128 x 4,096 x 128: 0.87 ms against 0.47; chip_smoke.py --bands)."""
+    return sw_align_uses_global(lb) or (
+        la > 32 * 8 * KERNEL_WARPS and lb >= BAND_MIN_COLS)
 
 
-def rows_per_lane(la: int) -> int:
-    """R, the rows of a strip: 4 up to LA 1024 (at most eight tiles of 128
-    rows, one pass of the kernel's eight warps), else 8."""
+def rows_per_lane(la: int, lb: int) -> int:
+    """R, the rows of a strip.  The shared-memory kernel: 4 up to LA 1024
+    (at most eight tiles of 128 rows, one pass of its eight warps), else
+    8.  The band kernel: 4 from BAND_R4_COLS columns, where more and
+    shorter steps run at once (R = 8 25-36% slower at 2 x 8,192 x 16,384
+    and 1 x 16,384²), else 8, where the bands' start lag (~47 steps a
+    band) weighs more than the step (R = 4 8-24% slower at 512 columns;
+    even at 1,024; chip_smoke.py --bands)."""
+    if sw_align_uses_bands(la, lb):
+        return 4 if lb >= BAND_R4_COLS else 8
     return 4 if la <= 32 * 4 * KERNEL_WARPS else 8
 
 
 def tb_shape(b: int, la: int, lb: int) -> Tuple[int, ...]:
-    r = rows_per_lane(la)
+    r = rows_per_lane(la, lb)
     return (b, -(-la // (32 * r)), lb + 31, 32, r // 2)
+
+
+def band_work_words(b: int, bands: int) -> int:
+    """int32 words of the band kernel's work buffer: the ticket, done [b]
+    and the bands' bests [b, bands, 3]."""
+    return 1 + b + 3 * b * bands
+
+
+def band_stats_words(b: int) -> int:
+    """int32 words of the band kernel's stats buffer: blocks live, the most
+    live at once and the SM masks [b, SM_WORDS]."""
+    return 2 + b * SM_WORDS
+
+
+def _band_launch(variant, name, prof, args, b, la, lb, r, stats) -> None:
+    """Launch a band entry: ``args`` the short entry's with the pass
+    scratch left out; the boundaries, the column words (16 bytes a B
+    column a pair) and the work buffer allocated here; ``stats`` the
+    caller's stats buffer or None."""
+    bands = -(-la // (32 * r))
+    dev = prof.device
+    bnd = torch.empty((b, bands - 1, lb, 3), dtype=torch.float32, device=dev)
+    cols = torch.empty((b, lb, 16), dtype=torch.uint8, device=dev)
+    work = torch.empty(band_work_words(b, bands), dtype=torch.int32,
+                       device=dev)
+    if stats is not None and (stats.dtype != torch.int32
+                              or stats.numel() != band_stats_words(b)
+                              or stats.device != dev):
+        raise ValueError(f"{name}: stats must be int32 "
+                         f"[{band_stats_words(b)}] on {dev}")
+    kernels.launch(variant, name, prof, *args, kernels.ptr(bnd),
+                   kernels.ptr(cols), kernels.ptr(work),
+                   None if stats is None else kernels.ptr(stats))
+
+
+def band_stats(stats: torch.Tensor, b: int, la: int, lb: int) -> dict:
+    """A band launch on b pairs of [la, lb] that filled ``stats``: its plan
+    (rows a lane, band height, bands a pair, blocks), the most blocks
+    live at once, and the SMs each pair's bands ran on."""
+    r = rows_per_lane(la, lb)
+    bands = -(-la // (32 * r))
+    w = stats.cpu()
+    masks = w[2:].view(b, SM_WORDS)
+    sms = [sum(bin(int(x) & 0xffffffff).count("1") for x in row)
+           for row in masks.tolist()]
+    return {"pairs": b, "rows_per_lane": r, "band_rows": 32 * r,
+            "bands": bands, "blocks": b * bands,
+            "blocks_in_flight": int(w[1]), "sms_per_pair": sms}
 
 
 @dataclasses.dataclass
@@ -152,10 +244,12 @@ def check_b_side(prof, prof_b, name: str) -> None:
 @kernels.counted
 def sw_align(prof: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor,
              table: FeatureTable, la: int, lb: int, open_: float,
-             ext: float):
+             ext: float, stats: Optional[torch.Tensor] = None):
     """Pairs (prof[ia], prof[ib]) of profiles prof [N, F, L] uint8
     (PAD_BYTE past a chain's end), DP shape [la, lb] -> (best [B] float32,
-    bi [B] int32, bj [B] int32, packed tb (module notes))."""
+    bi [B] int32, bj [B] int32, packed tb (module notes)).  ``stats``, an
+    int32 tensor of band_stats_words(B) on prof's device, is filled where
+    the band kernel runs (band_stats reads it), else left as it is."""
     if prof.device.type == "cpu":
         return sw_align_ref(prof, ia, ib, table, la, lb, open_, ext)
     check_pairs(prof, ia, ib, table, la, lb, open_, ext)
@@ -168,56 +262,57 @@ def sw_align(prof: torch.Tensor, ia: torch.Tensor, ib: torch.Tensor,
     tb = torch.empty(shape, dtype=torch.uint8, device=dev)
     if b == 0:
         return best, bi, bj, tb
-    # the boundary row between passes of KERNEL_WARPS tiles
-    scratch = (torch.empty((b, lb, 3), dtype=torch.float32, device=dev)
-               if shape[1] > KERNEL_WARPS else best)
     sizes = (ctypes.c_int * len(table.sizes))(*table.sizes)
     args = (kernels.ptr(prof), kernels.ptr(ia), kernels.ptr(ib),
             kernels.ptr(table.blocks), table.blocks.numel(), sizes,
             len(table.sizes), prof.shape[2], b, la, lb, 2 * shape[4],
             float(open_), float(ext), kernels.ptr(best), kernels.ptr(bi),
-            kernels.ptr(bj), kernels.ptr(tb), kernels.ptr(scratch))
-    if sw_align_uses_global(lb):
-        cols = _column_words(b, lb, dev)
-        kernels.launch(sw_align_long, "sw_align_long", prof, *args,
-                       kernels.ptr(cols))
+            kernels.ptr(bj), kernels.ptr(tb))
+    if sw_align_uses_bands(la, lb):
+        _band_launch(sw_align_long, "sw_align_long", prof, args, b, la, lb,
+                     2 * shape[4], stats)
     else:
-        kernels.launch(sw_align, "sw_align", prof, *args)
+        # the boundary row between passes of KERNEL_WARPS tiles
+        scratch = (torch.empty((b, lb, 3), dtype=torch.float32, device=dev)
+                   if shape[1] > KERNEL_WARPS else best)
+        kernels.launch(sw_align, "sw_align", prof, *args,
+                       kernels.ptr(scratch))
     return best, bi, bj, tb
 
 
 @kernels.counted
 def sw_score_profiles(prof: torch.Tensor, prof_b: torch.Tensor,
                       ia: torch.Tensor, ib: torch.Tensor, table: FeatureTable,
-                      la: int, lb: int, open_: float,
-                      ext: float) -> torch.Tensor:
+                      la: int, lb: int, open_: float, ext: float,
+                      stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Score only: pairs (prof[ia], prof_b[ib]) of profiles [N, F, L] uint8
     (prof_b of prof's shape, e.g. the reversed chains'), DP shape [la, lb]
-    -> best local score [B] float32 (>= 0), bit-equal to sw_align's best."""
+    -> best local score [B] float32 (>= 0), bit-equal to sw_align's best.
+    ``stats`` as sw_align's."""
     if prof.device.type == "cpu":
         return sw_score_profiles_ref(prof, prof_b, ia, ib, table, la, lb,
                                      open_, ext)
     check_pairs(prof, ia, ib, table, la, lb, open_, ext)
     check_b_side(prof, prof_b, "sw_score_profiles")
     b = int(ia.shape[0])
-    r = rows_per_lane(la)
+    r = rows_per_lane(la, lb)
     best = torch.empty(b, dtype=torch.float32, device=prof.device)
     if b == 0:
         return best
-    scratch = (torch.empty((b, lb, 3), dtype=torch.float32,
-                           device=prof.device)
-               if -(-la // (32 * r)) > KERNEL_WARPS else best)
     sizes = (ctypes.c_int * len(table.sizes))(*table.sizes)
     args = (kernels.ptr(prof), kernels.ptr(prof_b), kernels.ptr(ia),
             kernels.ptr(ib), kernels.ptr(table.blocks), table.blocks.numel(),
             sizes, len(table.sizes), prof.shape[2], b, la, lb, r,
-            float(open_), float(ext), kernels.ptr(best), kernels.ptr(scratch))
-    if sw_align_uses_global(lb):
-        cols = _column_words(b, lb, prof.device)
-        kernels.launch(sw_score_long, "sw_score_profiles_long", prof, *args,
-                       kernels.ptr(cols))
+            float(open_), float(ext), kernels.ptr(best))
+    if sw_align_uses_bands(la, lb):
+        _band_launch(sw_score_long, "sw_score_profiles_long", prof, args, b,
+                     la, lb, r, stats)
     else:
-        kernels.launch(sw_score_profiles, "sw_score_profiles", prof, *args)
+        scratch = (torch.empty((b, lb, 3), dtype=torch.float32,
+                               device=prof.device)
+                   if -(-la // (32 * r)) > KERNEL_WARPS else best)
+        kernels.launch(sw_score_profiles, "sw_score_profiles", prof, *args,
+                       kernels.ptr(scratch))
     return best
 
 
