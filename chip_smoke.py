@@ -13,9 +13,10 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py --io-cmds       # phases 0-1, then phase 11
     python3 chip_smoke.py --msa-cmds      # phases 0-1, then phase 12
     python3 chip_smoke.py --long          # phases 0-1, then phase 13
-    python3 chip_smoke.py --long --parent DIR   # and the band entries'
+    python3 chip_smoke.py --long --parent DIR   # and the long entries'
                                           # times in the tree at DIR
     python3 chip_smoke.py --bands     # phases 0-1, the band kernel's rules
+    python3 chip_smoke.py --mu-bands  # phases 0-1, the Mu band kernel's
 
 Phases, in order; any failure exits non-zero and prints no result:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -105,9 +106,15 @@ Phases, in order; any failure exits non-zero and prints no result:
      shortest q100 chains.  Each long-column variant at a shape the main
      path gives it (sw_align and sw_score_profiles, the band kernel, at
      the 8,000 x 12,000 pairs' 2 x 8,192 x 16,384, and score only at the
-     self-rev's 1 x 16,384 x 16,384; the Mu filter at the legacy bucket,
-     2 x 12,032 x 12,032; LDDT at 2 x 12,000) against its plain version
-     (bit-equal; LDDT within 1e-6), the band kernels also on tie-prone
+     self-rev's 1 x 16,384 x 16,384; the Mu filter's band kernel at the
+     legacy bucket, 2 x 12,032 x 12,032, at one pair of it, on a ragged
+     batch there whose A sides end mid-band, and on two whole stage-1
+     blocks of the --omega search, short rows against the 16,384 edge (R
+     = 4) and its largest, 128 pairs of 16,384 x 16,384 (R = 8, blocks
+     queued), the plain version on their distinct pairs; LDDT at 2 x
+     12,000, at one pair of it, at M = 7,681 and at 8 x 8,000) against its
+     plain version (bit-equal; LDDT within 1e-6, risky equal), the band
+     kernels also on tie-prone
      random pairs (3 x 600 x 8,448: a best cell repeated in two bands, a
      pair with no positive cell, two-letter features) and below the
      column limit on stage-3 chunks of the long chains (8 x 8,192 x
@@ -118,13 +125,22 @@ Phases, in order; any failure exits non-zero and prints no result:
      12,000-residue query against the
      11 chains and one of 20,000 residues (stage-3 edge 32,768)
      byte-equal to the host engine, every long chain with its self hit;
-     the legacy engine (sensitive filters, MKF routing off) on the two
-     long chains and the 8 short ones equal to the host PairAligner pair
-     for pair.  With --parent DIR, first the band entries' times in the
-     tree at DIR and in this one, each in a subprocess.
+     a --verysensitive --omega 12 self-search (the Mu filter back on, as
+     a user's --omega turns it) of the 8,000- and 12,000-residue chains
+     and the 8 short ones byte-equal to the host engine, launching
+     mu_sweep_long; the legacy engine (sensitive filters, MKF routing off)
+     on the two long chains and the 8 short ones equal to the host
+     PairAligner pair for pair.  With --parent DIR, first the long
+     entries' times (the band SW entries, mu_sweep_long, lddt_long) in
+     the tree at DIR and in this one, each in a subprocess, their outputs
+     bit-equal.
 --bands times the band kernel against the shared-memory kernel, and its
 R = 4 against R = 8, at BAND_SHAPES (phase_bands), the rules of
-ops/sw_align.py's sw_align_uses_bands and rows_per_lane.
+ops/sw_align.py's sw_align_uses_bands and rows_per_lane; --mu-bands the
+Mu filter's band kernel at R = 4 and R = 8 against the shared-memory
+kernel at MU_BAND_SHAPES and the --omega search's stage-1 blocks past
+8,192 columns (phase_mu_bands), the rules of ops/sw_sweep.py's
+mu_uses_global and mu_band_rows.
 Each kernel must have been launched by the run of the phase that KERNELS
 names for it (counts set to 0 just before that run, read just after);
 the query, -fast, mesh and phase 11's searches must launch every
@@ -236,8 +252,19 @@ LONG_KERNELS = {
     "lddt_long": ("reseek_tpu_torch/csrc/postalign.cu",
                   "reseek_tpu/ops/postalign_jax.py:79", "search"),
     "mu_sweep_long": ("reseek_tpu_torch/csrc/mu_wavefront.cu",
-                      "reseek_tpu/ops/sw_sweep.py:327", "legacy"),
+                      "reseek_tpu/ops/sw_sweep.py:327", "omega"),
 }
+# phase 13: --omega of the self-search that turns the Mu filter back on
+# under --verysensitive (a user's flag), whose stage-1 blocks of the long
+# chains take mu_sweep_long
+LONG_OMEGA = 12.0
+# --mu-bands: the shapes (pairs, LA, LB) at which the Mu filter runs by
+# the shared-memory kernel (up to 8,192 columns) and by the band kernel at
+# R = 4 and R = 8: the legacy bucket past the limit, tall shapes with few
+# pairs below it; then the stage-1 blocks of the --omega self-search that
+# take the band kernel (phase_mu_bands adds them from its block plan)
+MU_BAND_SHAPES = ((2, 12032, 12032), (1, 12032, 12032), (2, 4096, 4096),
+                  (2, 8192, 8192), (8, 2048, 8192))
 # the native host code, built with g++ at first use (module of the port,
 # its loader _lib)
 NATIVE = ("encoder.native", "align.mkf_native", "ops.lddt", "ops.sw_native",
@@ -2155,19 +2182,49 @@ def long_pipe(base):
     return pipe, chains, longs, {c.label: i for i, c in enumerate(chains)}
 
 
+def mu_bucket_letters(pipe, ia, ib):
+    """The Mu letters of the pairs (ia[k], ib[k]) (sorted indices) at the
+    legacy engine's bucket past its last (DeviceDB): the longest chain's
+    length rounded up to 256, square -> (a, b [B, le] uint8)."""
+    le = -(-int(pipe.lens.max()) // 256) * 256
+    return pipe.mu[ia, :le], pipe.mu[ib, :le]
+
+
+def lddt_long_columns(longs, device=None):
+    """Phase 13's LDDT gate columns, M = 12,000: the longest chain against
+    its noisy copy, and against a copy with 0.5 A noise (seed 18) over
+    11,000 valid columns -> (cq, ct [2, M, 3], valid [2, M], ncols [2])
+    on ``device`` (DEVICE by default)."""
+    device = device or DEVICE
+    top, noisy = longs[-2], longs[-1]
+    m = len(top)
+    rng = np.random.default_rng(REPLICA_SEED + 1)
+    other = top.coords + rng.normal(0, 2 * REPLICA_NOISE,
+                                    top.coords.shape).astype(np.float32)
+    cq = torch.tensor(np.stack([top.coords, top.coords]), device=device)
+    ct = torch.tensor(np.stack([noisy.coords, other]), device=device)
+    valid = torch.ones((2, m), dtype=torch.bool, device=device)
+    valid[1, m * 11 // 12:] = False
+    return cq, ct, valid, valid.sum(1).to(torch.int32)
+
+
 def long_kernel_times(reps: int = 5) -> None:
     """The band entries (sw_align, sw_score_profiles past 8,192 columns)
     timed at phase 13's gate shape, 2 x 8,192 x 16,384, sw_score at the
     B = 1 self-rev shape and sw_align at the 8,000-residue pair's 1 x
     8,192 x 8,192 and on 8 pairs of the long chains at that edge (a full
-    stage-3 chunk there), by whichever reseek_tpu_torch is first on
-    sys.path: phase 13's --parent runs it on another tree's package in a
-    subprocess.  Prints one JSON line: {name: {"ms", "digest"}}, the
-    digest of the best scores and cells."""
+    stage-3 chunk there); the Mu filter's long entry at the legacy bucket
+    (2 x 12,032 x 12,032) and LDDT's at 2 x 12,000 (phase 13's gate
+    inputs), by whichever reseek_tpu_torch is first on sys.path: phase
+    13's --parent runs it on another tree's package in a subprocess.
+    Prints one JSON line: {name: {"ms", "digest"}}, the digest of the
+    outputs (best scores and cells; LDDT values and risky flags)."""
     import hashlib
     from reseek_tpu_torch.device import disable_tf32
     from reseek_tpu_torch.io.reader import read_chains
+    from reseek_tpu_torch.ops.postalign import lddt_batch
     from reseek_tpu_torch.ops.sw_align import sw_align, sw_score_profiles
+    from reseek_tpu_torch.ops.sw_sweep import mu_sw_scores
     disable_tf32()
     pipe, _chains, longs, at = long_pipe(read_chains(Q100))
     p = pipe.params
@@ -2193,6 +2250,12 @@ def long_kernel_times(reps: int = 5) -> None:
                                           pipe.table, la, la, go, ge),
         "sw_align_8x8192": lambda: sw_align(pipe.prof, ia8, ib8, pipe.table,
                                             la, la, go, ge)}
+    a_mu, b_mu = mu_bucket_letters(pipe, ia, ib)
+    o, e = -float(p.para_mu_gap_open), -float(p.para_mu_gap_ext)
+    cols = lddt_long_columns(longs)
+    runs["mu_sweep_long"] = lambda: mu_sw_scores(a_mu, b_mu, pipe.mu_table,
+                                                 o, e)
+    runs["lddt_long"] = lambda: lddt_batch(*cols)
     out = {}
     for name, fn in runs.items():
         got = fn()
@@ -2299,6 +2362,80 @@ def phase_bands(base, reps: int = 5) -> None:
                   + "; plans " + json.dumps(plans))
 
 
+def phase_mu_bands(base, reps: int = 5) -> None:
+    """The Mu filter's band kernel measured: at each of MU_BAND_SHAPES, on
+    pairs of phase 13's long chains (long_pipe), and at the stage-1 blocks
+    of its pipeline whose columns take the band kernel (the first block of
+    each group of stage1_block_plan past MU_MAX_LB columns, as the
+    --omega self-search launches them), the Mu filter by the
+    shared-memory kernel (up to MU_MAX_LB columns, at its own lanes and R)
+    and by the band kernel at R = 4 and at R = 8, forced by replacing
+    ops/sw_sweep.py's mu_uses_global and mu_band_rows, in turns, forward
+    then back.  All must give the same scores.  One line a shape: the
+    times and each band plan with its blocks in flight and SMs a pair."""
+    from reseek_tpu_torch.ops import sw_sweep as mu
+    from reseek_tpu_torch.ops.sw_align import band_stats, band_stats_words
+    pipe, _chains, longs, at = long_pipe(base)
+    p = pipe.params
+    o, e = -float(p.para_mu_gap_open), -float(p.para_mu_gap_ext)
+    idx = [at[c.label] for c in longs]
+    combos = [(x, y) for x in idx for y in idx]
+    rule = (mu.mu_uses_global, mu.mu_band_rows)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    variants = ("short", "bands R=4", "bands R=8")
+    cases = []
+    for b, la, lb in MU_BAND_SHAPES:
+        pairs = np.asarray([combos[k % len(combos)] for k in range(b)])
+        ia, ib = (pipe._sorted_idx(pairs[:, k]) for k in (0, 1))
+        cases.append((f"pairs {(b, la, lb)}", pipe.mu[ia, :la],
+                      pipe.mu[ib, :lb]))
+    for (lea, leb, ca, cb), starts in pipe.stage1_block_plan().items():
+        if mu.mu_uses_global(leb):
+            a, b, _ia, _ib = pipe.stage1_letters(lea, leb, ca, cb,
+                                                 *starts[0][:2])
+            cases.append((f"stage-1 block {(lea, leb, ca, cb)}", a, b))
+
+    @contextlib.contextmanager
+    def forced(kind):
+        bands = kind != "short"
+        mu.mu_uses_global = lambda lb: bands
+        if bands:
+            mu.mu_band_rows = lambda b, la, sms, r=int(kind[-1]): r
+        try:
+            yield
+        finally:
+            mu.mu_uses_global, mu.mu_band_rows = rule
+
+    for what, a, b in cases:
+        (n, la), lb = a.shape, b.shape[1]
+        names = [v for v in variants if v != "short" or lb <= mu.MU_MAX_LB]
+
+        def run(v, stats=None, a=a, b=b):
+            with forced(v):
+                return mu.mu_sw_scores(a, b, pipe.mu_table, o, e,
+                                       stats=stats)
+
+        got = {v: run(v) for v in names}
+        if not all(torch.equal(got[v], got[names[0]]) for v in names):
+            fail(f"--mu-bands at {what}: the variants' scores differ")
+        ms = {v: [] for v in names}
+        for v in names + names[::-1]:
+            ms[v].append(time_ms(functools.partial(run, v), reps))
+        plans = {}
+        for v in names[int(names[0] == "short"):]:
+            st = torch.empty(band_stats_words(n), dtype=torch.int32,
+                             device=DEVICE)
+            run(v, st)
+            plans[v] = band_stats(st, n, la, lb, int(v[-1]))
+            sms = plans[v].pop("sms_per_pair")
+            plans[v]["sms_per_pair_min_max"] = [min(sms), max(sms)]
+        print(f"[mb] Mu filter, {what} -> {(n, la, lb)}: rule "
+              f"{'bands' if rule[0](lb) else 'short'} R="
+              f"{rule[1](n, la, sms)}; ms " + json.dumps(
+                  {v: [round(x, 4) for x in t] for v, t in ms.items()})
+              + "; plans " + json.dumps(plans), flush=True)
+
+
 def once_ms(fn):
     """(fn(), its milliseconds): CUDA events around one call, for the
     plain versions at phase 13's shapes, which run once."""
@@ -2367,7 +2504,7 @@ def phase_long_ties(pipe, gate, same, equal) -> None:
         fail("tie-prone gate: sw_score_long differs from sw_align_long")
 
 
-def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
+def phase_long_kernels(pipe, opipe, a_orig, b_orig, longs) -> dict:
     """Phase 13, kernel gates: each long-column variant against its plain
     version on the card at a shape the main path gives it; the score
     kernels and the walk bit-equal, LDDT within LDDT_TOL.  sw_align,
@@ -2377,7 +2514,8 @@ def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
     pair, several passes of row tiles, each handing its bottom row to the
     next through device memory); the Mu filter on the same pairs at the
     legacy engine's bucket of the longest chain (its length rounded up to
-    256, square); LDDT on two pairs of M = 12,000 columns (the longest
+    256, square), and on the stage-1 blocks of ``opipe`` (the --omega
+    self-search's engine) past the column limit, whole; LDDT on two pairs of M = 12,000 columns (the longest
     chain against its noisy copy, and against a copy with 0.5 A noise
     over 11,000 valid columns).  The bounds count the cells up to the
     chains' ends.  Each kernel timed (CUDA events behind the device spin,
@@ -2385,24 +2523,27 @@ def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
     plain_ms, bound_ms, bound_by, shape}}."""
     from reseek_tpu_torch.ops.postalign import (lddt_batch, lddt_batch_ref,
                                                 lddt_cluster,
+                                                lddt_long_blocks,
                                                 walk_traceback_batch,
                                                 walk_traceback_batch_ref)
     from reseek_tpu_torch.ops.sw_align import (band_stats, band_stats_words,
                                                sw_align, sw_align_ref,
                                                sw_score_profiles,
                                                sw_score_profiles_ref)
-    from reseek_tpu_torch.ops.sw_sweep import (mu_lane_bits, mu_sw_scores,
-                                               mu_sw_scores_ref)
+    from reseek_tpu_torch.ops.sw_sweep import (mu_band_rows, mu_lane_bits,
+                                               mu_sw_scores, mu_sw_scores_ref,
+                                               mu_uses_global)
     p = pipe.params
     res = {}
 
     def gate(name, got_fn, plain_fn, equal, shape, nbytes, ops, reps=3,
-             key=None, chain=None):
+             key=None, chain=None, plan=band_stats):
         """Run the kernel (its variant counted), then the plain version
         once; fail unless ``equal(got, want)`` (-> max_abs_err or None);
         time the kernel and keep its bound (and, for a band kernel, the
         chain bound from the longest pair's LA + LB cells, and its plan
-        and stats from one more call, got_fn(stats)) under ``key``."""
+        and stats from one more call, got_fn(stats), read by ``plan``)
+        under ``key``."""
         with Launches() as n:
             got = got_fn()
             torch.cuda.synchronize()
@@ -2423,7 +2564,10 @@ def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
             st = torch.empty(band_stats_words(shape[0]), dtype=torch.int32,
                              device=DEVICE)
             got_fn(st)
-            r["bands"] = band_stats(st, *shape)
+            r["bands"] = plan(st, *shape)
+            sms = r["bands"]["sms_per_pair"]
+            if len(sms) > 8:
+                r["bands"]["sms_per_pair"] = [min(sms), max(sms)]
             extra = (f", chain bound {r['chain_bound_ms']:.4f} ms; "
                      f"bands {json.dumps(r['bands'])}")
         print(f"[13] {key} at {shape}: equal to the plain version (err "
@@ -2521,46 +2665,111 @@ def phase_long_kernels(pipe, a_orig, b_orig, longs) -> dict:
 
     o, e = -float(p.para_mu_gap_open), -float(p.para_mu_gap_ext)
     mt = pipe.mu_table
-    # the legacy engine's bucket past its last (DeviceDB): rounded up to 256
-    le = -(-int(pipe.lens.max()) // 256) * 256
-    a, b = pipe.mu[ia, :le], pipe.mu[ib, :le]
-    bits = mu_lane_bits(le, le, mt.smax, mt.smin, int(o), int(e))
-    # the kernel sweeps each pair's rows and columns to its last letter
-    ends = [int((x != 36).cumsum(1).argmax(1)[k]) + 1
-            for x in (a, b) for k in range(nb)]
-    mu_real = sum(ends[k] * ends[nb + k] for k in range(nb))
-    gate("mu_sweep_long", lambda: mu_sw_scores(a, b, mt, o, e),
-         lambda: mu_sw_scores_ref(a, b, mt.mumx, o, e),
-         lambda g, w: 0.0 if torch.equal(g, w) else None,
-         (nb, le, le), a.numel() + b.numel() + 2 * mt.tab16.numel() + 4 * nb,
-         mu_real * CELL_OPS["mu_sweep"])
-    print(f"[13] mu_sweep_long lanes: int{bits}; cells to the letters' "
-          f"ends {mu_real}")
 
-    top, noisy = longs[-2], longs[-1]
-    m = len(top)
-    rng = np.random.default_rng(REPLICA_SEED + 1)
-    other = top.coords + rng.normal(0, 2 * REPLICA_NOISE,
-                                    top.coords.shape).astype(np.float32)
-    cq = torch.tensor(np.stack([top.coords, top.coords]), device=DEVICE)
-    ct = torch.tensor(np.stack([noisy.coords, other]), device=DEVICE)
-    valid = torch.ones((2, m), dtype=torch.bool, device=DEVICE)
-    valid[1, m * 11 // 12:] = False
-    n_m = valid.sum(1).to(torch.int32)
-    nm = n_m.long()
+    def exact(g, w):
+        return 0.0 if torch.equal(g, w) else None
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def mu_plan(st, b, la, lb):
+        return band_stats(st, b, la, lb, mu_band_rows(b, la, sms))
+
+    def distinct_ref(a, b):
+        """The plain version on the distinct (A, B) rows of a batch, its
+        scores spread back over the batch's rows: a stage-1 block's pairs
+        clamped to the last chain repeat one pair, which must score alike."""
+        rows, inv = torch.unique(torch.cat([a, b], 1), dim=0,
+                                 return_inverse=True)
+        la = a.shape[1]
+        return mu_sw_scores_ref(rows[:, :la].contiguous(),
+                                rows[:, la:].contiguous(), mt.mumx, o,
+                                e)[inv]
+
+    def mu_gate(key, a, b):
+        """The Mu filter's band kernel on letters a [B, LA], b [B, LB]:
+        bit-equal to its plain version (on the batch's distinct pairs);
+        bound from the cells up to each pair's last letters (the kernel
+        sweeps no more), chain bound from the longest pair's rows +
+        columns there."""
+        ea, eb = (((x < 36) * torch.arange(1, x.shape[1] + 1,
+                                           device=DEVICE)).amax(1).cpu()
+                  .numpy().astype(np.int64) for x in (a, b))
+        ea = np.where(eb > 0, ea, 0)
+        bsz, la = a.shape
+        lb = b.shape[1]
+        gate("mu_sweep_long",
+             lambda st=None: mu_sw_scores(a, b, mt, o, e, stats=st),
+             lambda: distinct_ref(a, b), exact,
+             (bsz, la, lb), a.numel() + b.numel() + 2 * mt.tab16.numel()
+             + 4 * bsz, int((ea * eb).sum()) * CELL_OPS["mu_sweep"],
+             key=key, chain=int((ea + eb).max()), plan=mu_plan)
+        bits = mu_lane_bits(la, lb, mt.smax, mt.smin, int(o), int(e))
+        print(f"[13] {key}: int{bits} lanes, R = "
+              f"{mu_band_rows(bsz, la, sms)}; rows / columns to the "
+              f"letters' ends {ea.tolist()[:8]} / {eb.tolist()[:8]}")
+
+    # the legacy bucket (2 x 12,032 x 12,032), one pair of it, and a
+    # ragged batch at that bucket: A sides ending mid-band (the noisy
+    # 12,000 chain cut at 5,064 rows, the 8,000 chain, the shortest chain)
+    a, b = mu_bucket_letters(pipe, ia, ib)
+    mu_gate("mu_sweep_long_bucket", a, b)
+    mu_gate("mu_sweep_long_b1", a[1:], b[1:])
+    ragged = a[[1, 0, 1]].clone()
+    ragged[0, 5064:] = 36
+    ragged[2] = pipe.mu[0, :ragged.shape[1]]
+    mu_gate("mu_sweep_long_ragged", ragged, b[[0, 0, 1]].contiguous())
+    # the --omega self-search's stage-1 blocks past the limit, whole, as
+    # it launches them: its short rows against the 16,384 edge (the
+    # smallest A edge; 128 blocks, R = 4), and its largest, 16,384 x
+    # 16,384 (128 pairs of the 12,000-residue chain, fwd and rev, 8,192
+    # blocks that queue, R = 8), mu_sweep_long's shape in the kernels line
+    blocks = {k: v for k, v in opipe.stage1_block_plan().items()
+              if mu_uses_global(k[1])}
+    for key, shape in (("mu_sweep_long_stage1", min(blocks)),
+                       ("mu_sweep_long", max(blocks))):
+        sa, sb, _, _ = opipe.stage1_letters(*shape, *blocks[shape][0][:2])
+        mu_gate(key, sa, sb)
 
     def lddt_equal(got, want):
         err = float((got[0] - want[0]).abs().max())
         return err if torch.equal(got[1], want[1]) and err <= LDDT_TOL \
             else None
 
-    got = gate("lddt_long", lambda: lddt_batch(cq, ct, valid, n_m),
-               lambda: lddt_batch_ref(cq, ct, valid, n_m), lddt_equal,
-               (2, m), 8 * cq.numel() + valid.numel() + 4 * 2 + 5 * 2,
-               int((nm * (nm - 1) // 2).sum()) * LDDT_PAIR_OPS)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"[13] lddt_long: values {got[0].tolist()}, risky "
-          f"{got[1].tolist()}, {lddt_cluster(2, m, sms)} blocks a pair")
+
+    def lddt_gate(key, cq, ct, valid):
+        """LDDT's long variant within LDDT_TOL of its plain version, risky
+        equal; bound from the valid column pairs."""
+        n_m = valid.sum(1).to(torch.int32)
+        nm = n_m.long()
+        b, m = valid.shape
+        got = gate("lddt_long", lambda: lddt_batch(cq, ct, valid, n_m),
+                   lambda: lddt_batch_ref(cq, ct, valid, n_m), lddt_equal,
+                   (b, m), 8 * cq.numel() + valid.numel() + 4 * b + 5 * b,
+                   int((nm * (nm - 1) // 2).sum()) * LDDT_PAIR_OPS, key=key)
+        print(f"[13] {key}: values {got[0].tolist()}, risky "
+              f"{got[1].tolist()}, {lddt_long_blocks(b, m, sms)} blocks "
+              f"(the parent's cluster: {lddt_cluster(b, m, sms)} a pair)")
+
+    cq, ct, valid, _n = lddt_long_columns(longs)
+    lddt_gate("lddt_long", cq, ct, valid)
+    lddt_gate("lddt_long_b1", cq[:1], ct[:1], valid[:1])
+    # M = 7,681, one past the shared-memory kernel's limit
+    lddt_gate("lddt_long_7681", cq[:, :7681].contiguous(),
+              ct[:, :7681].contiguous(), valid[:, :7681].contiguous())
+    # B = 8 at M = 8,000: the 8,000-residue chain against copies with
+    # 0.0625-0.5 A of noise (seed 19), valid over ragged spans with holes
+    eight = longs[0]
+    m8 = len(eight)
+    rng = np.random.default_rng(REPLICA_SEED + 2)
+    cq8 = torch.tensor(np.repeat(eight.coords[None], 8, 0), device=DEVICE)
+    ct8 = torch.tensor(np.stack([
+        eight.coords + rng.normal(0, REPLICA_NOISE * (k + 1) / 4,
+                                  eight.coords.shape).astype(np.float32)
+        for k in range(8)]), device=DEVICE)
+    v8 = rng.random((8, m8)) < 0.97
+    for k in range(8):
+        v8[k, m8 - 500 * k:] = False
+    lddt_gate("lddt_long_b8", cq8, ct8, torch.tensor(v8, device=DEVICE))
     return res
 
 
@@ -2587,12 +2796,20 @@ def phase_long(base, parent=None):
     from reseek_tpu_torch.search import driver as port
     from reseek_tpu_torch.search.batched import (BatchedEngine, DeviceDB,
                                                  batched_self_search)
+    from reseek_tpu_torch.search.engine import DeviceSelfSearch
     from reseek_tpu_torch.search.host import SearchOptions, _encode_all
     t_phase = time.perf_counter()
     if parent is not None:
+        times = {}
         for tree in (parent, ROOT):
-            print(f"[13] band entries' times, {tree}: "
-                  f"{json.dumps(tree_long_times(tree))}")
+            times[tree] = tree_long_times(tree)
+            print(f"[13] long entries' times, {tree}: "
+                  f"{json.dumps(times[tree])}", flush=True)
+        differ = sorted(k for k in times[parent] if k in times[ROOT] and
+                        times[parent][k]["digest"] != times[ROOT][k]["digest"])
+        if differ:
+            fail(f"the long entries' outputs differ from {parent}'s: "
+                 f"{differ}")
     torch.cuda.reset_peak_memory_stats()
     pipe, chains, longs, at = long_pipe(base)
     ecs, params = pipe.ecs, pipe.params
@@ -2603,8 +2820,17 @@ def phase_long(base, parent=None):
           f"q100, beside the 8 shortest q100 chains; {xl.label} in the "
           f"searches")
     print(f"[13] engine edges {pipe.edges}")
-    res = phase_long_kernels(pipe, [at[labels[0]], at[labels[2]]],
+    # --verysensitive --omega 12, as a user gives it: the Mu filter runs,
+    # and its stage-1 blocks of the long chains (columns at edges 8,192
+    # and 16,384) take mu_sweep_long
+    oparams = dataclasses.replace(params, omega=LONG_OMEGA)
+    ochains = short + longs[:2]
+    opipe = DeviceSelfSearch(_encode_all(ochains, oparams,
+                                         with_self_rev=False), oparams,
+                             device=DEVICE)
+    res = phase_long_kernels(pipe, opipe, [at[labels[0]], at[labels[2]]],
                              [at[labels[1]]] * 2, longs)
+    del opipe
     launches = {}
 
     t0 = time.perf_counter()
@@ -2624,10 +2850,10 @@ def phase_long(base, parent=None):
                          max_evalue=float("inf"))
     dev = {"engine": "device", "device": DEVICE}
 
-    def run(fn, *a, **kw):
+    def run(fn, *a, with_params=params, **kw):
         out = io.StringIO()
         t0 = time.perf_counter()
-        fn(*a, params, opts, out, **kw)
+        fn(*a, with_params, opts, out, **kw)
         torch.cuda.synchronize()
         return out.getvalue(), time.perf_counter() - t0
 
@@ -2661,6 +2887,23 @@ def phase_long(base, parent=None):
     print(f"[13] --verysensitive query {labels[1]} x {len(searched)} chains: "
           f"{len(got.splitlines())} rows byte-equal to the host; device "
           f"{dev_s:.2f} s, host {host_s:.2f} s; launches {launched.counts}")
+
+    # the --omega self-search through the entry point
+    want, host_s = run(port.self_search, ochains, with_params=oparams,
+                       engine="host")
+    with Launches() as launched:
+        got, dev_s = run(port.self_search, ochains, with_params=oparams,
+                         **dev)
+    if got != want:
+        fail(f"--verysensitive --omega {LONG_OMEGA:g} self-search differs "
+             "from the host")
+    launched.require(["mu_sweep_long", "sw_align_long", "lddt_long"],
+                     f"the --omega {LONG_OMEGA:g} self-search")
+    launches["omega"] = launched.counts
+    print(f"[13] --verysensitive --omega {LONG_OMEGA:g} self-search of "
+          f"{len(ochains)} chains: {len(got.splitlines())} rows byte-equal "
+          f"to the host; device {dev_s:.2f} s, host {host_s:.2f} s; "
+          f"launches {launched.counts}", flush=True)
 
     lparams = dataclasses.replace(DSSParams.create("sensitive"),
                                   mkfl=params.mkfl)
@@ -2696,8 +2939,9 @@ def phase_long(base, parent=None):
 
 def long_entries(res: dict, launches: dict) -> list:
     """The ``kernels`` line's entries of the long-column variants: phase
-    13's gate results, the launches of the run LONG_KERNELS names and of
-    the legacy run; the band kernels' chain bound and bands."""
+    13's gate results, the launches of the run LONG_KERNELS names, of the
+    legacy run and of every run of phase 13; the band kernels' chain
+    bound and bands."""
     return [{"name": k, "route": "cuda", "source": src, "replaces": rep,
              "launches": launches[run][k],
              "max_abs_err": res[k]["max_abs_err"], "ms": res[k]["ms"],
@@ -2705,6 +2949,7 @@ def long_entries(res: dict, launches: dict) -> list:
              "bound_by": res[k]["bound_by"], "library_ms": None,
              "shape": res[k]["shape"],
              "legacy_launches": launches["legacy"][k],
+             "launches_by_run": {r: n[k] for r, n in launches.items()},
              **{x: res[k][x] for x in ("chain_bound_ms", "bands")
                 if x in res[k]}}
             for k, (src, rep, run) in LONG_KERNELS.items()]
@@ -2771,6 +3016,11 @@ def main() -> int:
         # phases 0-1, then the band kernel against the shared-memory
         # kernel and R = 4 against R = 8
         phase_bands(chains)
+        return 0
+    if sys.argv[1:] == ["--mu-bands"]:
+        # phases 0-1, then the Mu filter's band kernel against its
+        # shared-memory kernel and R = 4 against R = 8
+        phase_mu_bands(chains)
         return 0
     if sys.argv[1:] == ["--stage1"]:
         # phases 0-1, then the replica's stage 1 alone (to compare two

@@ -68,19 +68,35 @@
 // on d^2 at R0^2 = 225) that send a pair to the exact host recompute.
 //
 // lddt_long (M > 7,680 columns, whose 29 bytes a column no longer fit in
-// shared memory): the same tiles, warps, cluster and risky rule, with the
-// columns read from device memory.  A warp loads its tile's 32 row
-// columns and 32 other columns once (lane l: column 32 I + l and column
-// 32 J + l, coordinates and flag, into registers) and at step s takes
-// column 32 J + ((l + s) mod 32)'s from lane (l + s) mod 32 by shuffles,
-// so nothing is staged.  The per-column counts go to a device-memory
-// scratch of 64-bit words, pres in the low and cons in the high 32 bits
-// (cons = 4 x the considered partners, which leaves 16 bits past 16,384
-// columns), each tile adding its lanes' row and column totals with one
-// 64-bit atomic each; after the cluster barrier the leader block forms
-// the scores 2,048 columns at a time in shared memory, and one thread adds
-// them left to right, in the order of lddt_kernel, so both give the same
-// bits.
+// shared memory; replaces the same scan, postalign_jax.lddt_batch): what
+// bounds it on the H100 is the distance work, n(n-1)/2 column pairs a
+// pair of ~24 float operations (0.0475 ms at 2 x 12,000 columns at 67
+// TFLOP/s).  A cluster of at most 8 blocks a pair, as lddt_kernel runs,
+// filled 16 of 132 SMs on two pairs (4.5 ms), and each step of its 32 x 32
+// tiles paid 8 shuffles for ~24 float operations.  So the triangle of
+// column pairs of every pair of the launch is cut into tiles of 128 rows x
+// 128 columns (diagonal tiles keep the pairs with row < column), dealt to
+// warps by an atomic ticket over as many blocks as fill the card
+// (ops/postalign.py lddt_long_blocks: a few blocks an SM at any B).  A warp
+// stages its tile's 128 columns (coordinates and flag, 32 bytes each) in
+// shared memory once; lane l holds 4 row columns in registers and at step
+// s takes column s by a broadcast read, so one read of a column serves 4
+// column pairs and no step shuffles an operand.  Most pairs lie further
+// than 15 A apart in both structures: the roots, the thresholds and the
+// column total run only where a lane of the warp considers a pair (a warp
+// vote), the total by one __reduce_add_sync, kept by lane s mod 32.  Row
+// and column totals (preserved in the low 16 bits, considered in the
+// high 16, exact integers whatever the order) go to a device-memory
+// scratch of 64-bit words, pres in the low and cons in the high 32 bits,
+// with one 64-bit atomic a column a tile; the risky flag by atomicOr.  A
+// second small launch, a block a pair, forms the scores 2,048 columns at
+// a time in shared memory, and one thread adds them left to right, in the
+// order of lddt_kernel (columns past the last valid one score 0, and
+// adding 0.0 leaves the sum's bits as they are), so both give the same
+// bits.  2 x 12,000 columns: 0.39 ms on 528 blocks (11.5x the cluster
+// kernel in the same call, 12% of the bound; chip_smoke.py --long,
+// NVIDIA H100 80GB HBM3, 700 W), the second launch's one-thread sum of
+// ~12,000 dependent adds a pair included (not timed apart).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -95,6 +111,8 @@ constexpr int WALK_W = 128;   // columns of a walk window (32-256 timed alike)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float R0_SQ = 225.0f;
 constexpr int LONG_SUM_COLS = 2048;   // lddt_long: scores staged a round
+constexpr int LONG_ROWS = 4;          // lddt_long: row columns a lane
+constexpr int LONG_TILE = 32 * LONG_ROWS;   // lddt_long: tile edge
 
 // 16 bytes from device memory to shared memory, asynchronously
 __device__ __forceinline__ void copy16(void* smem, const void* gmem) {
@@ -402,115 +420,149 @@ __device__ __forceinline__ unsigned long long widen(int x) {
          ((unsigned long long)((unsigned)x >> 16) << 32);
 }
 
+// The tiles of the launch's B pairs, LONG_TILE x LONG_TILE column pairs
+// each (tile t of a pair -> (I, J), I <= J, as lddt_kernel's), taken by
+// warps from a ticket.  cnt [B, M] uint64 zeroed (the per-column counts);
+// work [1 + B] int64 zeroed: the ticket, then each pair's risky flag.
+template <bool RISKY>
 __global__ void __launch_bounds__(LDDT_WARPS * 32)
 lddt_long_kernel(const float* __restrict__ cq, const float* __restrict__ ct,
-                 const uint8_t* __restrict__ valid,
-                 const int* __restrict__ ncols, unsigned long long* cnt,
-                 float* __restrict__ out, uint8_t* __restrict__ risky, int M,
-                 int with_risky) {
-  __shared__ float part[LONG_SUM_COLS];
-  __shared__ int n_cols, any_flag;
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int nblk = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int pair = blockIdx.x / nblk;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int w = tid >> 5;
-  const float* pq = cq + (size_t)pair * M * 3;
-  const float* pt = ct + (size_t)pair * M * 3;
-  const uint8_t* pv = valid + (size_t)pair * M;
-  unsigned long long* pc = cnt + (size_t)pair * M;   // zeroed by the caller
-  if (tid == 0) n_cols = 0;
-  __syncthreads();
-  int last = 0;
-  for (int c = tid; c < M; c += blockDim.x)
-    if (pv[c]) last = c + 1;
-  atomicMax(&n_cols, last);
-  __syncthreads();
-  // columns past the last valid one score 0 and add nothing to the sum
-  const int n = n_cols;
-  const int nt = (n + 31) / 32;
-  const int tiles = nt * (nt + 1) / 2;
-
-  // column c's coordinates and flag (0 past n)
-  struct Col {
-    float qx, qy, qz, tx, ty, tz;
-    int v;
-  };
-  auto load = [&](int c) -> Col {
-    Col k{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0};
-    if (c < n && pv[c]) {
-      k.qx = pq[3 * c]; k.qy = pq[3 * c + 1]; k.qz = pq[3 * c + 2];
-      k.tx = pt[3 * c]; k.ty = pt[3 * c + 1]; k.tz = pt[3 * c + 2];
-      k.v = 1;
-    }
-    return k;
-  };
-
-  int flag = 0;
-  for (int k = rank * LDDT_WARPS + w; k < tiles; k += nblk * LDDT_WARPS) {
-    // tile k -> (I, J), I <= J: J(J+1)/2 <= k < (J+1)(J+2)/2
-    int J = (int)((sqrtf(8.0f * (float)k + 1.0f) - 1.0f) * 0.5f);
-    while (J * (J + 1) / 2 > k) --J;
-    while ((J + 1) * (J + 2) / 2 <= k) ++J;
-    const int I = k - J * (J + 1) / 2;
+                 const uint8_t* __restrict__ valid, unsigned long long* cnt,
+                 unsigned long long* work, int B, int M) {
+  // a warp's staged columns: (qx, qy, qz, tx), (ty, tz, valid, 0)
+  __shared__ float4 stage[LDDT_WARPS][LONG_TILE][2];
+  const int lane = threadIdx.x & 31;
+  float4(*st)[2] = stage[threadIdx.x >> 5];
+  const long long nt = (M + LONG_TILE - 1) / LONG_TILE;
+  const long long tp = nt * (nt + 1) / 2;           // tiles a pair
+  const unsigned long long total = (unsigned long long)tp * B;
+  for (;;) {
+    unsigned long long k = 0;
+    if (lane == 0) k = atomicAdd(work, 1ull);
+    k = __shfl_sync(FULL, k, 0);
+    if (k >= total) break;
+    const int pair = (int)(k / tp);
+    const long long t = (long long)(k - (unsigned long long)pair * tp);
+    long long J = (long long)((sqrt(8.0 * (double)t + 1.0) - 1.0) * 0.5);
+    while (J * (J + 1) / 2 > t) --J;
+    while ((J + 1) * (J + 2) / 2 <= t) ++J;
+    const int I = (int)(t - J * (J + 1) / 2);
     const bool diag = I == J;
-    const int c = 32 * I + lane;
-    const Col r = load(c);
-    const Col oc = load(32 * J + lane);
-    const int s0 = diag ? 1 : 0;
-    const int s1 = diag ? 17 : 32;
-    int racc = 0, cacc = 0;
-    for (int s = s0; s < s1; ++s) {
-      const int src = (lane + s) & 31;     // column 32 J + src
-      const float ox = __shfl_sync(FULL, oc.qx, src);
-      const float oy = __shfl_sync(FULL, oc.qy, src);
-      const float oz = __shfl_sync(FULL, oc.qz, src);
-      const float ux = __shfl_sync(FULL, oc.tx, src);
-      const float uy = __shfl_sync(FULL, oc.ty, src);
-      const float uz = __shfl_sync(FULL, oc.tz, src);
-      const int ov = __shfl_sync(FULL, oc.v, src);
-      if (r.v && ov && (s < 16 || lane < 16 || !diag)) {
-        const float a1 = dist2(r.qx, r.qy, r.qz, ox, oy, oz);
-        const float a2 = dist2(r.tx, r.ty, r.tz, ux, uy, uz);
-        if (with_risky && (near(a1, R0_SQ, 1e-3f) || near(a2, R0_SQ, 1e-3f)))
-          flag = 1;
-        if (!(a1 > R0_SQ && a2 > R0_SQ)) {
-          const float dd = fabsf(__fsub_rn(__fsqrt_rn(a1), __fsqrt_rn(a2)));
+    const uint8_t* pv = valid + (size_t)pair * M;
+    const float* pq = cq + (size_t)pair * M * 3;
+    const float* pt = ct + (size_t)pair * M * 3;
+    const int c0 = LONG_TILE * I + LONG_ROWS * lane;   // this lane's rows
+    const int o0 = LONG_TILE * (int)J;                 // the tile's columns
+    // bit r: row c0 + r valid; bit q: column o0 + 32 q + lane valid
+    unsigned rv = 0, ov = 0;
+#pragma unroll
+    for (int r = 0; r < LONG_ROWS; ++r)
+      if (c0 + r < M && pv[c0 + r]) rv |= 1u << r;
+#pragma unroll
+    for (int q = 0; q < LONG_ROWS; ++q)
+      if (o0 + 32 * q + lane < M && pv[o0 + 32 * q + lane]) ov |= 1u << q;
+    // a tile with no valid row or no valid column counts nothing
+    if (!__any_sync(FULL, rv != 0) || !__any_sync(FULL, ov != 0)) continue;
+    __syncwarp();   // the last tile's reads of st are done
+#pragma unroll
+    for (int q = 0; q < LONG_ROWS; ++q) {
+      const int o = o0 + 32 * q + lane;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f), y = x;
+      if ((ov >> q) & 1) {
+        x = make_float4(pq[3 * (size_t)o], pq[3 * (size_t)o + 1],
+                        pq[3 * (size_t)o + 2], pt[3 * (size_t)o]);
+        y = make_float4(pt[3 * (size_t)o + 1], pt[3 * (size_t)o + 2], 1.0f,
+                        0.0f);
+      }
+      st[32 * q + lane][0] = x;
+      st[32 * q + lane][1] = y;
+    }
+    float rx[LONG_ROWS], ry[LONG_ROWS], rz[LONG_ROWS];
+    float ux[LONG_ROWS], uy[LONG_ROWS], uz[LONG_ROWS];
+#pragma unroll
+    for (int r = 0; r < LONG_ROWS; ++r) {
+      const bool in = (rv >> r) & 1;
+      const size_t c = 3 * (size_t)(c0 + r);
+      rx[r] = in ? pq[c] : 0.0f;
+      ry[r] = in ? pq[c + 1] : 0.0f;
+      rz[r] = in ? pq[c + 2] : 0.0f;
+      ux[r] = in ? pt[c] : 0.0f;
+      uy[r] = in ? pt[c + 1] : 0.0f;
+      uz[r] = in ? pt[c + 2] : 0.0f;
+    }
+    __syncwarp();   // st written
+    int racc[LONG_ROWS] = {};
+    int cacc[LONG_ROWS] = {};   // slot q: column o0 + 32 q + lane's total
+    int flag = 0;
+#pragma unroll
+    for (int q = 0; q < LONG_ROWS; ++q) {
+      for (int s2 = 0; s2 < 32; ++s2) {
+        const int s = 32 * q + s2;
+        const float4 x = st[s][0], y = st[s][1];   // broadcasts
+        if (y.z == 0.0f) continue;                  // the same in every lane
+        float a1[LONG_ROWS], a2[LONG_ROWS];
+        bool cons[LONG_ROWS];
+        bool any = false;
+#pragma unroll
+        for (int r = 0; r < LONG_ROWS; ++r) {
+          // row c0 + r against column o0 + s: once (row < column on a
+          // diagonal tile), both valid
+          const bool pv_r =
+              ((rv >> r) & 1) && (!diag || LONG_ROWS * lane + r < s);
+          a1[r] = dist2(rx[r], ry[r], rz[r], x.x, x.y, x.z);
+          a2[r] = dist2(ux[r], uy[r], uz[r], x.w, y.x, y.y);
+          if (RISKY && pv_r &&
+              (near(a1[r], R0_SQ, 1e-3f) || near(a2[r], R0_SQ, 1e-3f)))
+            flag = 1;
+          cons[r] = pv_r && !(a1[r] > R0_SQ && a2[r] > R0_SQ);
+          any |= cons[r];
+        }
+        if (!__any_sync(FULL, any)) continue;
+        int sum = 0;
+#pragma unroll
+        for (int r = 0; r < LONG_ROWS; ++r) {
+          if (!cons[r]) continue;
+          const float dd =
+              fabsf(__fsub_rn(__fsqrt_rn(a1[r]), __fsqrt_rn(a2[r])));
           const int inc = (dd <= 0.5f) + (dd <= 1.0f) + (dd <= 2.0f) +
                           (dd <= 4.0f) + (4 << 16);
-          racc += inc;
-          cacc += inc;
-          if (with_risky &&
+          racc[r] += inc;
+          sum += inc;
+          if (RISKY &&
               (near(dd, 0.5f, 3e-5f) || near(dd, 1.0f, 3e-5f) ||
                near(dd, 2.0f, 3e-5f) || near(dd, 4.0f, 3e-5f)))
             flag = 1;
         }
+        const int tot = (int)__reduce_add_sync(FULL, (unsigned)sum);
+        if (lane == s2) cacc[q] = tot;
       }
-      // lane l holds column (l + s + 1) mod 32's total next
-      cacc = __shfl_sync(FULL, cacc, (lane + 1) & 31);
     }
-    // after the last step lane l holds column (l + s1) mod 32's total
-    if (diag) cacc = __shfl_sync(FULL, cacc, (lane - s1) & 31);
-    if (racc) atomicAdd(&pc[c], widen(racc));
-    if (cacc) atomicAdd(&pc[32 * J + lane], widen(cacc));
+    unsigned long long* pc = cnt + (size_t)pair * M;
+#pragma unroll
+    for (int r = 0; r < LONG_ROWS; ++r)
+      if (racc[r]) atomicAdd(&pc[c0 + r], widen(racc[r]));
+#pragma unroll
+    for (int q = 0; q < LONG_ROWS; ++q)
+      if (cacc[q]) atomicAdd(&pc[o0 + 32 * q + lane], widen(cacc[q]));
+    if (RISKY && __any_sync(FULL, flag) && lane == 0)
+      atomicOr(work + 1 + pair, 1ull);
   }
-  const int f = __syncthreads_or(flag);
-  if (tid == 0) any_flag = f;
-  __threadfence();
-  // every block's counts are final
-  cluster.sync();
-  if (rank == 0 && tid == 0)
-    for (int q = 1; q < nblk; ++q)
-      any_flag |= *cluster.map_shared_rank(&any_flag, q);
-  // the leader has read the other blocks' shared memory
-  cluster.sync();
-  if (rank != 0) return;
+}
+
+// A block a pair: the scores from the counts of lddt_long_kernel, added
+// left to right over the M columns; out, risky as lddt_kernel's.
+__global__ void __launch_bounds__(LDDT_WARPS * 32)
+lddt_finish_kernel(const unsigned long long* __restrict__ cnt,
+                   const unsigned long long* __restrict__ work,
+                   const int* __restrict__ ncols, float* __restrict__ out,
+                   uint8_t* __restrict__ risky, int M, int with_risky) {
+  __shared__ float part[LONG_SUM_COLS];
+  const int pair = blockIdx.x;
+  const int tid = threadIdx.x;
+  const unsigned long long* pc = cnt + (size_t)pair * M;
   float total = 0.0f;
-  for (int c0 = 0; c0 < n; c0 += LONG_SUM_COLS) {
-    const int c1 = min(n, c0 + LONG_SUM_COLS);
+  for (int c0 = 0; c0 < M; c0 += LONG_SUM_COLS) {
+    const int c1 = min(M, c0 + LONG_SUM_COLS);
     for (int c = c0 + tid; c < c1; c += blockDim.x) {
       const unsigned long long tot = pc[c];
       const int pres = (int)(tot & 0xffffffffu), cons = (int)(tot >> 32);
@@ -525,7 +577,7 @@ lddt_long_kernel(const float* __restrict__ cq, const float* __restrict__ ct,
   }
   if (tid == 0) {
     out[pair] = __fdiv_rn(total, (float)max(ncols[pair], 1));
-    if (with_risky) risky[pair] = (uint8_t)(any_flag != 0);
+    if (with_risky) risky[pair] = (uint8_t)(work[1 + pair] != 0);
   }
 }
 
@@ -600,23 +652,31 @@ int lddt(const void* cq, const void* ct, const void* valid, const void* ncols,
                      static_cast<uint8_t*>(risky), M, with_risky);
 }
 
-// lddt for M > 7680 (any M with 0 < M <= 2^20): cnt [B, M] uint64 zeroed
-// scratch (the per-column counts); the other arguments as lddt's.
+// lddt for M > 7680 (any M with 0 < M <= 2^20): cnt [B, M] uint64 and
+// work [1 + B] int64, both zeroed (the per-column counts; the ticket and
+// the risky flags); blocks: the first launch's blocks of LDDT_WARPS warps
+// (ops/postalign.py lddt_long_blocks); the other arguments as lddt's.
 int lddt_long(const void* cq, const void* ct, const void* valid,
-              const void* ncols, void* out, void* risky, void* cnt, int B,
-              int M, int with_risky, int cluster, void* stream) {
+              const void* ncols, void* out, void* risky, void* cnt,
+              void* work, int B, int M, int with_risky, int blocks,
+              void* stream) {
   if (B <= 0) return 0;
-  if (cluster < 1 || cluster > 8 || M < 1 || M > (1 << 20) ||
-      cnt == nullptr)
+  if (blocks < 1 || M < 1 || M > (1 << 20) || cnt == nullptr ||
+      work == nullptr)
     return (int)cudaErrorInvalidValue;
-  return launch_lddt(lddt_long_kernel, B, cluster, 0, stream,
-                     static_cast<const float*>(cq),
-                     static_cast<const float*>(ct),
-                     static_cast<const uint8_t*>(valid),
-                     static_cast<const int*>(ncols),
-                     static_cast<unsigned long long*>(cnt),
-                     static_cast<float*>(out), static_cast<uint8_t*>(risky),
-                     M, with_risky);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = with_risky ? lddt_long_kernel<true> : lddt_long_kernel<false>;
+  unsigned long long* pc = static_cast<unsigned long long*>(cnt);
+  unsigned long long* pw = static_cast<unsigned long long*>(work);
+  kernel<<<blocks, LDDT_WARPS * 32, 0, st>>>(
+      static_cast<const float*>(cq), static_cast<const float*>(ct),
+      static_cast<const uint8_t*>(valid), pc, pw, B, M);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  lddt_finish_kernel<<<B, LDDT_WARPS * 32, 0, st>>>(
+      pc, pw, static_cast<const int*>(ncols), static_cast<float*>(out),
+      static_cast<uint8_t*>(risky), M, with_risky);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

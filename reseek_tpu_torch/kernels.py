@@ -54,17 +54,21 @@ _SIGNATURES = {
                        _P],
     "lddt": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
-# the long-column variants: their short twin's arguments and one scratch
-# pointer more, before the stream (mu_wavefront_long: no lane-bits
-# argument, int32 only; the band entries of sw_align.cu: the boundaries in
-# place of the pass scratch, then the column words, the work buffer and
-# the stats buffer or null)
+# the long-column variants: their short twin's arguments and scratch
+# pointers more, before the stream (mu_wavefront_long, the Mu band kernel:
+# the boundaries in place of the pass scratch, then the ticket and the
+# stats buffer or null, and no lane-bits argument, int32 only; the band
+# entries of sw_align.cu: the boundaries in place of the pass scratch, then
+# the column words, the work buffer and the stats buffer or null;
+# lddt_long: the counts and the work buffer, and blocks in place of the
+# cluster size)
 _SIGNATURES.update({
-    "mu_wavefront_long": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mu_wavefront_long": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P],
     "sw_align_long": _SIGNATURES["sw_align"][:-1] + [_P, _P, _P, _P],
     "sw_score_profiles_long": _SIGNATURES["sw_score_profiles"][:-1]
     + [_P, _P, _P, _P],
-    "lddt_long": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lddt_long": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 })
 
 _lock = threading.Lock()

@@ -3,8 +3,9 @@ reseek_tpu/ops/postalign_jax.py: the batched traceback walk and batched
 LDDT.  On CUDA tensors each launches its kernel (csrc/postalign.cu); on
 CPU tensors each runs its plain version, defined beside it.  LDDT past
 MAX_LDDT_COLS columns (``lddt_uses_global``) launches the kernel's long
-variant, which reads the columns from device memory, counted apart on
-``lddt_long``."""
+variant, counted apart on ``lddt_long``: the column-pair tiles of all the
+launch's pairs dealt over ``lddt_long_blocks`` blocks, the columns and
+their counts in device memory."""
 
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ def lddt_uses_global(m: int) -> bool:
     return m > MAX_LDDT_COLS
 LDDT_WARPS = 8           # warps of a block of the kernel
 MAX_CLUSTER = 8          # blocks of a thread-block cluster (portable limit)
+LONG_TILE = 128          # the long variant's tiles: 128 x 128 column pairs
+LONG_BLOCKS_PER_SM = 4   # the long variant's blocks an SM, at most
 
 
 def lddt_cluster(b: int, m: int, sms: int) -> int:
@@ -47,6 +50,16 @@ def lddt_cluster(b: int, m: int, sms: int) -> int:
            and 2 * 2 * c * LDDT_WARPS <= tiles):
         c *= 2
     return c
+
+
+def lddt_long_blocks(b: int, m: int, sms: int) -> int:
+    """Blocks of the long variant's first launch on b pairs of m columns:
+    one a LDDT_WARPS tiles of LONG_TILE x LONG_TILE column pairs (the
+    warps take the tiles of every pair from one ticket), at most
+    LONG_BLOCKS_PER_SM an SM, so that the card fills at any b."""
+    nt = -(-m // LONG_TILE)
+    tiles = b * nt * (nt + 1) // 2
+    return max(1, min(-(-tiles // LDDT_WARPS), LONG_BLOCKS_PER_SM * sms))
 
 
 @functools.lru_cache(maxsize=8)
@@ -160,8 +173,9 @@ def lddt_batch(cq: torch.Tensor, ct: torch.Tensor, valid: torch.Tensor,
     with_risky, a [B] bool flag for pairs where a threshold comparison
     (|d1-d2| within 3e-5 of 0.5/1/2/4) or the R0^2 gate (d^2 within 1e-3
     of 225) sits near its boundary: callers recompute those exactly on the
-    host.  ``cluster`` sets the kernel's blocks per pair (1-8; 0 takes
-    ``lddt_cluster``'s)."""
+    host.  ``cluster`` sets the shared-memory kernel's blocks per pair
+    (1-8; 0 takes ``lddt_cluster``'s); the long variant (M past
+    MAX_LDDT_COLS) ignores it and runs on ``lddt_long_blocks``."""
     if cq.device.type == "cpu":
         return lddt_batch_ref(cq, ct, valid, ncols, with_risky)
     if cq.dtype != torch.float32 or ct.dtype != torch.float32:
@@ -183,15 +197,19 @@ def lddt_batch(cq: torch.Tensor, ct: torch.Tensor, valid: torch.Tensor,
     if b > 0:
         args = (kernels.ptr(cq), kernels.ptr(ct), kernels.ptr(valid),
                 kernels.ptr(ncols), kernels.ptr(out), kernels.ptr(risky))
-        tail = (b, m, int(with_risky),
-                cluster or lddt_cluster(b, m, _sm_count(dev)))
         if lddt_uses_global(m):
-            # per column: preserved (low 32 bits) and considered counts
+            # per column: preserved (low 32 bits) and considered counts;
+            # the tiles' ticket, then each pair's risky flag
             counts = torch.zeros((b, m), dtype=torch.int64, device=dev)
+            work = torch.zeros(1 + b, dtype=torch.int64, device=dev)
             kernels.launch(lddt_long, "lddt_long", cq, *args,
-                           kernels.ptr(counts), *tail)
+                           kernels.ptr(counts), kernels.ptr(work), b, m,
+                           int(with_risky),
+                           lddt_long_blocks(b, m, _sm_count(dev)))
         else:
-            kernels.launch(lddt_batch, "lddt", cq, *args, *tail)
+            kernels.launch(lddt_batch, "lddt", cq, *args, b, m,
+                           int(with_risky),
+                           cluster or lddt_cluster(b, m, _sm_count(dev)))
     return (out, risky) if with_risky else out
 
 

@@ -156,11 +156,14 @@ def _band_launch(variant, name, prof, args, b, la, lb, r, stats) -> None:
                    None if stats is None else kernels.ptr(stats))
 
 
-def band_stats(stats: torch.Tensor, b: int, la: int, lb: int) -> dict:
+def band_stats(stats: torch.Tensor, b: int, la: int, lb: int,
+               r: Optional[int] = None) -> dict:
     """A band launch on b pairs of [la, lb] that filled ``stats``: its plan
     (rows a lane, band height, bands a pair, blocks), the most blocks
-    live at once, and the SMs each pair's bands ran on."""
-    r = rows_per_lane(la, lb)
+    live at once, and the SMs each pair's bands ran on.  ``r``: the
+    launch's rows a lane (default rows_per_lane's; the Mu filter's band
+    kernel passes its own)."""
+    r = rows_per_lane(la, lb) if r is None else r
     bands = -(-la // (32 * r))
     w = stats.cpu()
     masks = w[2:].view(b, SM_WORDS)

@@ -10,10 +10,13 @@ Two entries, two CUDA sources:
   ops/sw_np.sw_score bit for bit; the kernel runs the DP in int16 pairs
   or int32 on Hopper's DPX instructions, with the lane type that
   ``mu_lane_bits`` proves cannot wrap.  Past MU_MAX_LB columns
-  (``mu_uses_global``) it launches the kernel's long variant, int32
-  lanes with the column words in device memory, counted apart on
-  ``mu_sweep_long``.  Its table is a ``MuTable``, built and checked
-  once.
+  (``mu_uses_global``) it launches the kernel's long variant, the band
+  kernel (int32 lanes; a pair's tiles of rows run at once as bands of one
+  warp, handing their boundary through device memory,
+  ``mu_band_scratch``, in launches of ``mu_band_pairs`` pairs, whose
+  boundaries fit a share of the card's memory), counted apart on
+  ``mu_sweep_long``.  Its table
+  is a ``MuTable``, built and checked once.
 - ``sw_score_sweep``: the float row sweep of the score-only stage-2
   prepass (csrc/sw_sweep.cu; replaces sw_score_sweep_pallas and the
   gather-sum that fed it a substitution tensor), up to SWEEP_MAX_LB
@@ -37,19 +40,26 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from reseek_tpu_torch import kernels
 from reseek_tpu_torch.ops.smx import profile_codes, profile_smx
-from reseek_tpu_torch.ops.sw_align import (FeatureTable, check_b_side,
-                                           check_pairs)
+from reseek_tpu_torch.ops.sw_align import (FeatureTable, band_stats_words,
+                                           check_b_side, check_pairs)
 
 NEG = np.float32(-9e9)
 SWEEP_MAX_LB = 8192        # columns of the float sweep (no long variant)
 MU_MAX_LB = 8192           # columns the Mu filter keeps in shared memory
+# blocks of one warp a Hopper SM holds at once: the band kernel's bands
+# all run at once up to this many an SM
+MU_BAND_BLOCKS_PER_SM = 32
+# the band kernel's boundaries of one launch take at most the device's
+# memory over this
+MU_BAND_SCRATCH_SHARE = 8
 SWEEP_MAX_V = 16           # B columns a lane of the float sweep
 SWEEP_MAX_LETTERS = 63     # alphabet size: 4 x letter fits a byte
 SWEEP_MAX_SLOTS = 256      # the tables' rows (alphabet sizes + 1, summed)
@@ -140,9 +150,66 @@ def mu_lane_bits(la: int, lb: int, smax: int, smin: int, open_: int,
 
 
 def mu_rows_per_lane(la: int) -> int:
-    """R, the rows of a lane's strip: 4 up to LA 128 (one tile of 32 R
-    rows), else 8 (tiles of 256 rows, passes beyond)."""
+    """R, the rows of a lane's strip in the shared-memory kernel: 4 up to
+    LA 128 (one tile of 32 R rows), else 8 (tiles of 256 rows, passes
+    beyond)."""
     return 4 if la <= 128 else 8
+
+
+def mu_band_rows(b: int, la: int, sms: int) -> int:
+    """R, the rows of a lane's strip in the band kernel (bands of 32 R
+    rows) on b pairs of la rows, on a card of ``sms`` SMs: 4 while the
+    launch's bands of 128 rows all fit on the card at once
+    (MU_BAND_BLOCKS_PER_SM blocks of one warp an SM), where a band's step
+    is the limit and a shorter one wins; else 8, which issues fewer
+    instructions a cell where the blocks queue.  (On an H100, R = 4 4-16%
+    faster at 1-8 pairs of 2,048-12,032 rows and at a stage-1 block of
+    128 x 128 x 16,384; R = 8 26-30% faster at the stage-1 blocks of 128
+    pairs x 8,192 or 16,384 rows x 16,384 columns, 8,192-16,384 blocks;
+    chip_smoke.py --mu-bands, PERF.md §6.)"""
+    return 4 if b * -(-la // 128) <= MU_BAND_BLOCKS_PER_SM * sms else 8
+
+
+def mu_band_plan(b: int, la: int, sms: int) -> Tuple[int, int, int]:
+    """(R, bands a pair, blocks) of the band kernel on b pairs of la rows
+    on a card of ``sms`` SMs: a block of one warp a band."""
+    r = mu_band_rows(b, la, sms)
+    bands = -(-la // (32 * r))
+    return r, bands, b * bands
+
+
+def mu_band_pairs(b: int, la: int, lb: int, budget: int) -> int:
+    """Pairs of one band-kernel launch on b pairs of [la, lb], so that the
+    launch's boundaries ([pairs, bands - 1, lb, 3] int32, counted at R =
+    4, the most bands) take at most ``budget`` bytes; at least one.  On
+    an H100 80GB (budget MU_BAND_SCRATCH_SHARE: ~10 GB) one pair fits up
+    to an edge of ~330,000; a stage-1 block of 128 pairs of 16,384² (3.2
+    GB) is one launch, of 65,536² five."""
+    per = (-(-la // 128) - 1) * lb * 12
+    return b if per == 0 else max(1, min(b, budget // per))
+
+
+def mu_band_scratch(out: torch.Tensor, b: int, la: int, lb: int, r: int):
+    """What the band kernel at R = ``r`` is handed besides the letters:
+    ``out`` zeroed (each band raises its pair's best by an atomic
+    maximum), the boundaries below each band [b, bands - 1, lb, 3] int32
+    filled with the sentinel -1 (0xffffffff, which no DP value takes:
+    they lie in [0, 2^30)), or ``out`` itself when a pair has one band,
+    and the ticket, one int32 0.  -> (bnd, ticket)."""
+    bands = -(-la // (32 * r))
+    out.zero_()
+    dev = out.device
+    bnd = (torch.full((b, bands - 1, lb, 3), -1, dtype=torch.int32,
+                      device=dev) if bands > 1 else out)
+    return bnd, torch.zeros(1, dtype=torch.int32, device=dev)
+
+
+@functools.lru_cache(maxsize=8)
+def _card(dev: torch.device) -> Tuple[int, int]:
+    """(SMs, the band kernel's scratch bytes a launch) of the card."""
+    prop = torch.cuda.get_device_properties(dev)
+    return (prop.multi_processor_count,
+            prop.total_memory // MU_BAND_SCRATCH_SHARE)
 
 
 def _gap_penalties(open_: float, ext: float) -> Tuple[int, int]:
@@ -170,10 +237,14 @@ def sweep_takes(lb: int) -> bool:
 
 @kernels.counted
 def mu_sw_scores(a: torch.Tensor, b: torch.Tensor, table: MuTable,
-                 open_: float, ext: float) -> torch.Tensor:
+                 open_: float, ext: float,
+                 stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Best local SW score [B] float32 (>= 0) for each pair of Mu letter
     rows a [B, LA], b [B, LB] (uint8, letter 36 = padding, trailing only)
-    under ``table``; open_, ext integer penalties <= 0."""
+    under ``table``; open_, ext integer penalties <= 0.  ``stats``: for
+    the band kernel only, an int32 [band_stats_words(B)] buffer that the
+    launch fills with its blocks in flight and each pair's SMs
+    (ops/sw_align.py band_stats reads it); None in production."""
     io, ie = _gap_penalties(open_, ext)
     if a.device.type == "cpu":
         return mu_sw_scores_ref(a, b, table.mumx, open_, ext)
@@ -192,22 +263,39 @@ def mu_sw_scores(a: torch.Tensor, b: torch.Tensor, table: MuTable,
         return torch.zeros(bsz, dtype=torch.float32, device=a.device)
     out = torch.empty(bsz, dtype=torch.float32, device=a.device)
     bits = mu_lane_bits(la, lb, table.smax, table.smin, io, ie)
+    tab = (kernels.ptr(a), kernels.ptr(b), kernels.ptr(table.tab16),
+           kernels.ptr(out))
+    if mu_uses_global(lb):
+        sms, budget = _card(a.device)
+        step = mu_band_pairs(bsz, la, lb, budget)
+        if stats is not None:
+            if (stats.dtype != torch.int32 or stats.device != a.device
+                    or stats.numel() != band_stats_words(bsz)):
+                raise ValueError("mu_sw_scores: stats must be int32 "
+                                 f"[{band_stats_words(bsz)}] on {a.device}")
+            if step < bsz:
+                raise ValueError("mu_sw_scores: stats of a batch that "
+                                 "takes more than one launch")
+            stats.zero_()
+        # batches of step pairs, so that their boundaries fit the budget
+        for k in range(0, bsz, step):
+            n = min(step, bsz - k)
+            r = mu_band_rows(n, la, sms)
+            bnd, ticket = mu_band_scratch(out[k:k + n], n, la, lb, r)
+            kernels.launch(mu_sweep_long, "mu_wavefront_long", a,
+                           kernels.ptr(a[k:k + n]), kernels.ptr(b[k:k + n]),
+                           tab[2], kernels.ptr(out[k:k + n]),
+                           kernels.ptr(bnd), kernels.ptr(ticket),
+                           None if stats is None else kernels.ptr(stats), n,
+                           la, lb, io, ie, r)
+        return out
     r = mu_rows_per_lane(la)
     groups = -(-bsz // (2 if bits == 16 else 1))
     # the boundary rows between passes of 32 R rows, two alternating
     bnd = (torch.empty((groups, 2, 3, lb), dtype=torch.int32,
                        device=a.device) if la > 32 * r else out)
-    args = (kernels.ptr(a), kernels.ptr(b), kernels.ptr(table.tab16),
-            kernels.ptr(out), kernels.ptr(bnd))
-    if mu_uses_global(lb):
-        # a row of column words a pair, 32 padding words on each side
-        cols = torch.empty((bsz, lb + 64), dtype=torch.int32,
-                           device=a.device)
-        kernels.launch(mu_sweep_long, "mu_wavefront_long", a, *args,
-                       kernels.ptr(cols), bsz, la, lb, io, ie, r)
-    else:
-        kernels.launch(mu_sw_scores, "mu_wavefront", a, *args, bsz, la, lb,
-                       io, ie, bits, r)
+    kernels.launch(mu_sw_scores, "mu_wavefront", a, *tab, kernels.ptr(bnd),
+                   bsz, la, lb, io, ie, bits, r)
     return out
 
 

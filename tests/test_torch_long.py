@@ -153,6 +153,10 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(kernels.torch.cuda, "device", Ctx)
     monkeypatch.setattr(kernels, "lib", lambda: lib)
     monkeypatch.setattr(kernels, "stream_of", lambda t: "stream")
+    # an H100 80GB's SMs and the Mu band kernel's scratch budget (the long
+    # LDDT and Mu variants' launch rules read them)
+    monkeypatch.setattr(postalign, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(sw_sweep, "_card", lambda dev: (132, 10 << 30))
     for w in kernel_wrappers().values():
         monkeypatch.setattr(w, "launches", 0)
     return lib
