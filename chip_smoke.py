@@ -1078,12 +1078,14 @@ def phase_stage1(chains, reps: int = 7) -> None:
     from reseek_tpu_torch.constants import DSSParams
     from reseek_tpu_torch.search.engine import DeviceSelfSearch
     from reseek_tpu_torch.search.host import _encode_all
+    from reseek_tpu_torch.utils.spans import Spans
     params = DSSParams.create(MODE)
     pipe = DeviceSelfSearch(_encode_all(chains, params, with_self_rev=False),
                             params, device=DEVICE)
     n = len(pipe.stage1_survivors())
     walls = []
     for _ in range(reps):
+        pipe.spans = Spans()     # this run's wall alone
         pipe.stage1_survivors()
         walls.append(pipe.seconds["stage1"])
     wall, busy, top = device_busy(pipe.stage1_survivors)

@@ -40,7 +40,6 @@ import json
 import os
 import socket
 import sys
-import time
 from typing import List, Optional, TextIO, Tuple
 
 import torch
@@ -52,6 +51,7 @@ from reseek_tpu_torch.io.mufasta import iter_mu_fasta
 from reseek_tpu_torch.parallel.mesh import (Mesh, MeshLike, _mesh_shard_ranges,
                                             as_mesh, host_shard_bounds)
 from reseek_tpu_torch.search.prefilter import PrefilterResult
+from reseek_tpu_torch.utils.spans import Spans
 
 __all__ = ["init_distributed", "global_mesh", "host_shard_bounds",
            "distributed_fast_search", "distributed_prefilter",
@@ -207,143 +207,157 @@ def distributed_fast_search(queries, db, options, out: Optional[TextIO],
     rank 0's merged outputs (None elsewhere); with_aln: every rank writes
     alignment blocks to scratch for rank 0 to join.  resume: reuse
     rows.<rank> when its stored fingerprint matches this run.  Returns
-    this rank's SearchDriver (counts cover its range) with ``fast_stats``.
+    this rank's SearchDriver (counts cover its range) with ``fast_stats``:
+    the rank's engine, range, reuse, cores, candidates, targets read and
+    kernel launches, and the call's span recorder (utils/spans.py) as a
+    dict: the walls of the whole call (``wall_s``), the prefilter
+    (``prefilter_s``: the set-up, the queries' encode, the sharded k-mer
+    scan and its merge) and stage 2 (``align_s``), and on the device
+    engine those of ``driver._fast_align_device`` within it.
     """
     from reseek_tpu_torch.search import driver as port_driver
     from reseek_tpu_torch.search import host
 
-    t0 = time.perf_counter()
-    rank, world = _rank_world()
-    mesh = as_mesh(mesh if mesh is not None else global_mesh())
-    per_rank = {mesh.ranks.count(r) for r in range(world)}
-    if len(mesh.ranks) != world * max(per_rank) or len(per_rank) != 1:
-        raise ValueError(f"mesh ranks {mesh.ranks}: every one of the "
-                         f"{world} ranks needs the same number of positions")
-    if engine == "auto":
-        engine = "device"
-    if engine not in ("device", "host"):
-        raise ValueError(f"unknown engine {engine!r}")
-    sens = DSSParams.create("sensitive")
-    q_ecs = host._encode_all(list(queries), sens, with_self_rev=False)
-    q_mu = [ec.mu_letters for ec in q_ecs]
-    nq = len(q_ecs)
-    db_is_path = isinstance(db, str)
-    if db_is_path and not db.lower().endswith(".bca"):
-        raise ValueError("multi-process -fast reads the DB by index: give "
-                         "a .bca file")
-    if db_is_path:
-        with BCAReader(db) as r:
-            n_targets = len(r)
-    else:
-        n_targets = len(db)
-
-    _allr, local = _mesh_shard_ranges(mesh, n_targets, rank)
-    proc_lo, proc_hi = local[0][1], local[-1][2]
-    fingerprint = {
-        "queries": [[ec.label, len(ec)] for ec in q_ecs],
-        "db": _db_fingerprint(db), "targets": n_targets, "dbmu": dbmu,
-        "top_b": top_b, "prefilter": prefilter_mode,
-        "columns": list(options.columns), "mode": options.mode,
-        "max_evalue": options.max_evalue,
-        "scores_are_not_evalues": options.scores_are_not_evalues,
-        "no_self": options.no_self, "aln": with_aln, "nprocs": world,
-        "pid": rank, "range": [proc_lo, proc_hi]}
-    # json normalises tuples and floats as the stored copy does
-    fingerprint = json.loads(json.dumps(fingerprint))
-    rows_fn = os.path.join(scratch_dir, f"rows.{rank}")
-    aln_fn = os.path.join(scratch_dir, f"aln.{rank}")
-    fp_fn = rows_fn + ".json"
-    stored = _read_json(fp_fn) if resume else None
-    reuse = (stored is not None and stored.get("fingerprint") == fingerprint
-             and os.path.exists(rows_fn)
-             and (not with_aln or os.path.exists(aln_fn)))
-    stats = {"engine": engine, "rank": rank, "nprocs": world,
-             "range": [proc_lo, proc_hi], "reused": reuse,
-             "cores": host_cores()}
-
-    # 2-3: prefilter of this rank's shards, merged over the group
-    def shard_mu(lo, hi):
-        if dbmu is not None:
-            return [m for _l, m in iter_mu_fasta(dbmu)][lo:hi]
-        if db_is_path:
-            with BCAReader(db) as r:
-                chains = [r.read_chain(t) for t in range(lo, hi)]
-        else:
-            chains = db[lo:hi]
-        enc = iter(list(port_driver._mu_letters(
-            c for c in chains if not hasattr(c, "mu_letters"))))
-        return [c.mu_letters if hasattr(c, "mu_letters") else next(enc)
-                for c in chains]
-
-    merged = distributed_prefilter(q_mu, shard_mu(proc_lo, proc_hi), proc_lo,
-                                   mesh, top_b=top_b, mode=prefilter_mode)
-    t_pf = time.perf_counter()
-    t2q = {t: qs for t, qs in merged.target_to_queries().items()
-           if proc_lo <= t < proc_hi}
-    tidxs = sorted(t2q)
-    stats.update(candidates=sum(len(v) for v in t2q.values()),
-                 targets_read=len(tidxs))
-
-    def survivor_chains():
-        if db_is_path:
-            with BCAReader(db) as r:
-                for t in tidxs:
-                    yield t, r.read_chain(t)
-        else:
-            for t in tidxs:
-                yield t, db[t]
-
-    # 4: stage 2 of this rank's survivors, or its finished rows reused;
-    # the kernel launches it made go into the stats
-    from reseek_tpu_torch.ops import kernel_wrappers
-    wrappers = kernel_wrappers()
-    before = {k: w.launches for k, w in wrappers.items()}
-    if reuse:
-        drv = host.SearchDriver(sens, options, None)
-        drv.hit_count = int(stored["hits"])
-    else:
-        for fn in (fp_fn, rows_fn, aln_fn):   # a stale set never survives
-            if os.path.exists(fn):
-                os.unlink(fn)
-        with contextlib.ExitStack() as files:
-            rows_out = files.enter_context(open(rows_fn + ".tmp", "w"))
-            opts = dataclasses.replace(options, aln_out=(
-                files.enter_context(open(aln_fn + ".tmp", "w"))
-                if with_aln else None))
-            drv = host.SearchDriver(sens, opts, rows_out)
-            if engine == "device":
-                port_driver._fast_align_device(
-                    drv, q_ecs, survivor_chains(), t2q, sens, opts, None,
-                    stats, mesh.local(rank))
+    spans = Spans()
+    with spans.call("fast_search"):
+        with spans.span("prefilter"):
+            rank, world = _rank_world()
+            mesh = as_mesh(mesh if mesh is not None else global_mesh())
+            per_rank = {mesh.ranks.count(r) for r in range(world)}
+            if (len(mesh.ranks) != world * max(per_rank)
+                    or len(per_rank) != 1):
+                raise ValueError(f"mesh ranks {mesh.ranks}: every one of "
+                                 f"the {world} ranks needs the same number "
+                                 f"of positions")
+            if engine == "auto":
+                engine = "device"
+            if engine not in ("device", "host"):
+                raise ValueError(f"unknown engine {engine!r}")
+            sens = DSSParams.create("sensitive")
+            q_ecs = host._encode_all(list(queries), sens,
+                                     with_self_rev=False)
+            q_mu = [ec.mu_letters for ec in q_ecs]
+            nq = len(q_ecs)
+            db_is_path = isinstance(db, str)
+            if db_is_path and not db.lower().endswith(".bca"):
+                raise ValueError("multi-process -fast reads the DB by "
+                                 "index: give a .bca file")
+            if db_is_path:
+                with BCAReader(db) as r:
+                    n_targets = len(r)
             else:
-                host._fast_align_host(drv, q_ecs, survivor_chains(), t2q,
-                                      sens)
-        if with_aln:
-            os.replace(aln_fn + ".tmp", aln_fn)
-        os.replace(rows_fn + ".tmp", rows_fn)
-        with open(fp_fn + ".tmp", "w") as f:
-            json.dump({"fingerprint": fingerprint,
-                       "hits": drv.hit_count}, f)
-        os.replace(fp_fn + ".tmp", fp_fn)
-    drv.query_count = nq
-    drv.processed_pairs = nq * (proc_hi - proc_lo)
-    stats["launches"] = {k: w.launches - before[k]
-                         for k, w in wrappers.items()}
-    t_align = time.perf_counter()
+                n_targets = len(db)
 
-    # 5: barrier, then rank 0 joins the files in rank order
-    if world > 1:
-        import torch.distributed as dist
-        dist.barrier()
-    if rank == 0:
-        for p in range(world):
-            if out is not None:
-                with open(os.path.join(scratch_dir, f"rows.{p}")) as f:
-                    out.write(f.read())
-            if aln_out is not None:
-                with open(os.path.join(scratch_dir, f"aln.{p}")) as f:
-                    aln_out.write(f.read())
-    stats.update(prefilter_s=t_pf - t0, align_s=t_align - t_pf,
-                 wall_s=time.perf_counter() - t0)
+            _allr, local = _mesh_shard_ranges(mesh, n_targets, rank)
+            proc_lo, proc_hi = local[0][1], local[-1][2]
+            fingerprint = {
+                "queries": [[ec.label, len(ec)] for ec in q_ecs],
+                "db": _db_fingerprint(db), "targets": n_targets,
+                "dbmu": dbmu,
+                "top_b": top_b, "prefilter": prefilter_mode,
+                "columns": list(options.columns), "mode": options.mode,
+                "max_evalue": options.max_evalue,
+                "scores_are_not_evalues": options.scores_are_not_evalues,
+                "no_self": options.no_self, "aln": with_aln, "nprocs": world,
+                "pid": rank, "range": [proc_lo, proc_hi]}
+            # json normalises tuples and floats as the stored copy does
+            fingerprint = json.loads(json.dumps(fingerprint))
+            rows_fn = os.path.join(scratch_dir, f"rows.{rank}")
+            aln_fn = os.path.join(scratch_dir, f"aln.{rank}")
+            fp_fn = rows_fn + ".json"
+            stored = _read_json(fp_fn) if resume else None
+            reuse = (stored is not None
+                     and stored.get("fingerprint") == fingerprint
+                     and os.path.exists(rows_fn)
+                     and (not with_aln or os.path.exists(aln_fn)))
+            stats = {"engine": engine, "rank": rank, "nprocs": world,
+                     "range": [proc_lo, proc_hi], "reused": reuse,
+                     "cores": host_cores()}
+
+            # 2-3: prefilter of this rank's shards, merged over the group
+            def shard_mu(lo, hi):
+                if dbmu is not None:
+                    return [m for _l, m in iter_mu_fasta(dbmu)][lo:hi]
+                if db_is_path:
+                    with BCAReader(db) as r:
+                        chains = [r.read_chain(t) for t in range(lo, hi)]
+                else:
+                    chains = db[lo:hi]
+                enc = iter(list(port_driver._mu_letters(
+                    c for c in chains if not hasattr(c, "mu_letters"))))
+                return [c.mu_letters if hasattr(c, "mu_letters")
+                        else next(enc) for c in chains]
+
+            merged = distributed_prefilter(
+                q_mu, shard_mu(proc_lo, proc_hi), proc_lo, mesh,
+                top_b=top_b, mode=prefilter_mode)
+        with spans.span("align"):
+            t2q = {t: qs for t, qs in merged.target_to_queries().items()
+                   if proc_lo <= t < proc_hi}
+            tidxs = sorted(t2q)
+            stats.update(candidates=sum(len(v) for v in t2q.values()),
+                         targets_read=len(tidxs))
+
+            def survivor_chains():
+                if db_is_path:
+                    with BCAReader(db) as r:
+                        for t in tidxs:
+                            yield t, r.read_chain(t)
+                else:
+                    for t in tidxs:
+                        yield t, db[t]
+
+            # 4: stage 2 of this rank's survivors, or its finished rows
+            # reused; the kernel launches it made go into the stats
+            from reseek_tpu_torch.ops import kernel_wrappers
+            wrappers = kernel_wrappers()
+            before = {k: w.launches for k, w in wrappers.items()}
+            if reuse:
+                drv = host.SearchDriver(sens, options, None)
+                drv.hit_count = int(stored["hits"])
+            else:
+                # a stale set never survives
+                for fn in (fp_fn, rows_fn, aln_fn):
+                    if os.path.exists(fn):
+                        os.unlink(fn)
+                with contextlib.ExitStack() as files:
+                    rows_out = files.enter_context(open(rows_fn + ".tmp",
+                                                        "w"))
+                    opts = dataclasses.replace(options, aln_out=(
+                        files.enter_context(open(aln_fn + ".tmp", "w"))
+                        if with_aln else None))
+                    drv = host.SearchDriver(sens, opts, rows_out)
+                    if engine == "device":
+                        port_driver._fast_align_device(
+                            drv, q_ecs, survivor_chains(), t2q, sens, opts,
+                            None, spans, mesh.local(rank))
+                    else:
+                        host._fast_align_host(drv, q_ecs, survivor_chains(),
+                                              t2q, sens)
+                if with_aln:
+                    os.replace(aln_fn + ".tmp", aln_fn)
+                os.replace(rows_fn + ".tmp", rows_fn)
+                with open(fp_fn + ".tmp", "w") as f:
+                    json.dump({"fingerprint": fingerprint,
+                               "hits": drv.hit_count}, f)
+                os.replace(fp_fn + ".tmp", fp_fn)
+            drv.query_count = nq
+            drv.processed_pairs = nq * (proc_hi - proc_lo)
+            stats["launches"] = {k: w.launches - before[k]
+                                 for k, w in wrappers.items()}
+
+        # 5: barrier, then rank 0 joins the files in rank order
+        if world > 1:
+            import torch.distributed as dist
+            dist.barrier()
+        if rank == 0:
+            for p in range(world):
+                if out is not None:
+                    with open(os.path.join(scratch_dir, f"rows.{p}")) as f:
+                        out.write(f.read())
+                if aln_out is not None:
+                    with open(os.path.join(scratch_dir, f"aln.{p}")) as f:
+                        aln_out.write(f.read())
+    stats.update(spans.stats())
     drv.fast_stats = stats
     return drv

@@ -31,7 +31,6 @@ kernel, sw_align and LDDT launch their long variants.
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -51,6 +50,7 @@ from reseek_tpu_torch.ops.sw_align import (FeatureTable, sw_align,
 from reseek_tpu_torch.ops.sw_sweep import MuTable, mu_sw_scores
 from reseek_tpu_torch.search.engine import (_PATH_CHARS, _f32,
                                             _finish_from_lddt, aligned_coords)
+from reseek_tpu_torch.utils.spans import Spans
 
 DEFAULT_BUCKETS = (96, 192, 384, 768, 1536, 3072)
 CELL_BUDGET = 1 << 26  # B * L * L cells per device batch
@@ -76,7 +76,9 @@ class DeviceDB:
     letters and the reversed Mu letters (letter 36 past the end, the
     reversed ones left-aligned), the coordinates, all padded to one Lmax
     and gathered and sliced per batch on the device; with
-    with_rev_profiles also the reversed chains' profiles."""
+    with_rev_profiles also the reversed chains' profiles.  ``spans``
+    (utils/spans.py) records its engines' stages, a new one for each
+    ``batched_self_search`` call."""
 
     def __init__(self, ecs: List[EncodedChain], params: DSSParams,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
@@ -121,7 +123,7 @@ class DeviceDB:
         self.mu_rev = torch.tensor(mu_rev, device=dev)
         self.coords = torch.tensor(coords, device=dev)
 
-        self.stats: Dict[str, float] = {}
+        self.spans = Spans()
         self.prof_rev: Optional[torch.Tensor] = None
         if with_rev_profiles:
             prof_rev = np.full((n, nf, self.lmax), PAD_BYTE, np.uint8)
@@ -137,18 +139,23 @@ class DeviceDB:
             self.prof_rev = torch.tensor(prof_rev, device=dev)
 
 
+    @property
+    def stats(self) -> Dict[str, float]:
+        """Each stage's pairs (``stage1_pairs`` .. ``stage3_pairs``; stage 4
+        takes stage 3's) and host-clock wall read after the device has
+        finished (``stage1_s`` .. ``stage4_s``, and ``finish_s``,
+        full_alignments' host finish), summed over the calls ``spans``
+        has recorded."""
+        return self.spans.stats()
+
+
 class BatchedEngine:
-    """The four stages over explicit (i, j) pairs of ``db``'s chains.
-    ``stats`` (the DB's, shared by its engines) holds, for the last call
-    of each stage, its pairs (``stage1_pairs`` .. ``stage3_pairs``; stage
-    4 takes stage 3's) and its host-clock wall read after the device has
-    finished (``stage1_s`` .. ``stage4_s``, and ``finish_s``,
-    full_alignments' host finish)."""
+    """The four stages over explicit (i, j) pairs of ``db``'s chains,
+    each stage's pairs and wall recorded on ``db.spans``."""
 
     def __init__(self, db: DeviceDB):
         self.db = db
         self.params = db.params
-        self.stats = db.stats
 
     # -- batching ------------------------------------------------------
     def _bucketed(self, pairs: np.ndarray
@@ -179,10 +186,12 @@ class BatchedEngine:
         return (torch.tensor(chunk[:, 0], dtype=torch.int64, device=dev),
                 torch.tensor(chunk[:, 1], dtype=torch.int64, device=dev))
 
-    def _clock(self) -> float:
-        if self.db.device.type == "cuda":
-            torch.cuda.synchronize(self.db.device)
-        return time.perf_counter()
+    def _stage(self, name: str, pairs: np.ndarray):
+        """The span of a stage over ``pairs``, counted as
+        ``<name>_pairs``: it starts and ends after the device has
+        finished."""
+        self.db.spans.count(name + "_pairs", len(pairs))
+        return self.db.spans.span(name, sync=(self.db.device,))
 
     @staticmethod
     def _scatter(n_pairs: int, jobs) -> np.ndarray:
@@ -199,48 +208,42 @@ class BatchedEngine:
         """Filter value per pair: 0 if fwd < OmegaFwd else fwd - rev
         (src/parasail_mu.cpp:120-161), with parasail's 8-bit saturation
         (align/pipeline.py MU_SAT_* notes)."""
-        t0 = self._clock()
         p, db = self.params, self.db
         o, e = -float(p.para_mu_gap_open), -float(p.para_mu_gap_ext)
-        jobs = []
-        for bucket, chunk, n, rows in self._bucketed(pairs):
-            ia, ib = self._sides(chunk)
-            b = db.mu[ib, :bucket]
-            # fwd and rev in one kernel launch ([2B] batch)
-            both = mu_sw_scores(
-                torch.cat([db.mu[ia, :bucket], db.mu_rev[ia, :bucket]]),
-                torch.cat([b, b]), db.mu_table, o, e)
-            fwd, rev = both[:len(chunk)], both[len(chunk):]
-            fwd = torch.where(fwd > MU_SAT_LIMIT, MU_SAT_SCORE, fwd)
-            rev = torch.where(rev > MU_SAT_LIMIT, MU_SAT_REV_SCORE, rev)
-            val = torch.where(fwd < _f32(p.omega_fwd), 0.0, fwd - rev)
-            jobs.append((rows, val[:n]))
-        out = self._scatter(len(pairs), jobs)
-        self.stats.update(stage1_pairs=len(pairs),
-                          stage1_s=self._clock() - t0)
-        return out
+        with self._stage("stage1", pairs):
+            jobs = []
+            for bucket, chunk, n, rows in self._bucketed(pairs):
+                ia, ib = self._sides(chunk)
+                b = db.mu[ib, :bucket]
+                # fwd and rev in one kernel launch ([2B] batch)
+                both = mu_sw_scores(
+                    torch.cat([db.mu[ia, :bucket], db.mu_rev[ia, :bucket]]),
+                    torch.cat([b, b]), db.mu_table, o, e)
+                fwd, rev = both[:len(chunk)], both[len(chunk):]
+                fwd = torch.where(fwd > MU_SAT_LIMIT, MU_SAT_SCORE, fwd)
+                rev = torch.where(rev > MU_SAT_LIMIT, MU_SAT_REV_SCORE, rev)
+                val = torch.where(fwd < _f32(p.omega_fwd), 0.0, fwd - rev)
+                jobs.append((rows, val[:n]))
+            return self._scatter(len(pairs), jobs)
 
     def full_scores(self, pairs: np.ndarray,
                     b_side_rev: bool = False) -> np.ndarray:
         """Stage-2 SW scores; with b_side_rev the target profile array is
         the reversed-chain encodes (used for self-reversal scores)."""
-        t0 = self._clock()
         p, db = self.params, self.db
         prof_b = db.prof_rev if b_side_rev else db.prof
         if prof_b is None:
             raise ValueError("full_scores: b_side_rev needs a DeviceDB "
                              "built with_rev_profiles")
-        jobs = []
-        for bucket, chunk, n, rows in self._bucketed(pairs):
-            ia, ib = self._sides(chunk)
-            sc = sw_score_profiles(db.prof, prof_b, ia, ib, db.table, bucket,
-                                   bucket, float(p.gap_open),
-                                   float(p.gap_ext))
-            jobs.append((rows, sc[:n]))
-        out = self._scatter(len(pairs), jobs)
-        self.stats.update(stage2_pairs=len(pairs),
-                          stage2_s=self._clock() - t0)
-        return out
+        with self._stage("stage2", pairs):
+            jobs = []
+            for bucket, chunk, n, rows in self._bucketed(pairs):
+                ia, ib = self._sides(chunk)
+                sc = sw_score_profiles(db.prof, prof_b, ia, ib, db.table,
+                                       bucket, bucket, float(p.gap_open),
+                                       float(p.gap_ext))
+                jobs.append((rows, sc[:n]))
+            return self._scatter(len(pairs), jobs)
 
     def self_rev_scores(self) -> np.ndarray:
         """GetSelfRevScore per chain (src/alignpair.cpp:7-25), batched."""
@@ -251,54 +254,54 @@ class BatchedEngine:
     def full_alignments(self, pairs: np.ndarray) -> List[AlignResult]:
         """Stage 3+4: paths on the device, LDDT on the device, TS/P/E on
         the host; a result per pair, in pair order."""
-        t0 = self._clock()
         p, db = self.params, self.db
         lens = np.array([len(ec) for ec in db.ecs])
-        batches = []
-        for bucket, chunk, n, rows in self._bucketed(pairs):
-            ia, ib = self._sides(chunk)
-            best, bi, bj, tb = sw_align(db.prof, ia, ib, db.table, bucket,
-                                        bucket, float(p.gap_open),
-                                        float(p.gap_ext))
-            lo_a, lo_b, plen, path_rev = walk_traceback_batch(tb, best, bi,
-                                                              bj, bucket)
-            del tb
-            batches.append((chunk, n, rows, ia, ib, bi, bj, path_rev,
-                            (best, lo_a, lo_b, plen)))
-        fetched = [(tuple(x[:n].cpu().numpy() for x in outs),
-                    path_rev[:n].cpu().numpy())
-                   for _c, n, _r, _a, _b, _i, _j, path_rev, outs in batches]
-        t1 = self._clock()
+        with self._stage("stage3", pairs):
+            batches = []
+            for bucket, chunk, n, rows in self._bucketed(pairs):
+                ia, ib = self._sides(chunk)
+                best, bi, bj, tb = sw_align(db.prof, ia, ib, db.table,
+                                            bucket, bucket, float(p.gap_open),
+                                            float(p.gap_ext))
+                lo_a, lo_b, plen, path_rev = walk_traceback_batch(
+                    tb, best, bi, bj, bucket)
+                del tb
+                batches.append((chunk, n, rows, ia, ib, bi, bj, path_rev,
+                                (best, lo_a, lo_b, plen)))
+            fetched = [(tuple(x[:n].cpu().numpy() for x in outs),
+                        path_rev[:n].cpu().numpy())
+                       for _c, n, _r, _a, _b, _i, _j, path_rev, outs
+                       in batches]
         # stage 4: LDDT over the aligned columns, at most min(LA, LB) of
         # them (padding columns past the valid ones add exact zeros)
-        lddts = []
-        for chunk, n, _rows, ia, ib, bi, bj, path_rev, _ in batches:
-            m_cap = int(np.minimum(lens[chunk[:, 0]], lens[chunk[:, 1]]).max())
-            cq, ct, valid, n_m = aligned_coords(path_rev, bi, bj, ia, ib,
-                                                db.coords, m_cap)
-            lddts.append(lddt_batch(cq, ct, valid, n_m,
-                                    with_risky=False)[:n])
-        lddts = [x.cpu().numpy() for x in lddts]
-        t2 = self._clock()
+        with db.spans.span("stage4", sync=(db.device,)):
+            lddts = []
+            for chunk, n, _rows, ia, ib, bi, bj, path_rev, _ in batches:
+                m_cap = int(np.minimum(lens[chunk[:, 0]],
+                                       lens[chunk[:, 1]]).max())
+                cq, ct, valid, n_m = aligned_coords(path_rev, bi, bj, ia, ib,
+                                                    db.coords, m_cap)
+                lddts.append(lddt_batch(cq, ct, valid, n_m,
+                                        with_risky=False)[:n])
+            lddts = [x.cpu().numpy() for x in lddts]
 
         results: List[Optional[AlignResult]] = [None] * len(pairs)
-        for (chunk, n, rows, *_), ((best, lo_a, lo_b, plen), path_rev), \
-                lddt in zip(batches, fetched, lddts):
-            for kk in range(n):
-                q, t = db.ecs[int(chunk[kk, 0])], db.ecs[int(chunk[kk, 1])]
-                res = AlignResult(query=q.label, target=t.label,
-                                  fwd_score=float(best[kk]))
-                if best[kk] > 0:
-                    codes = path_rev[kk, :plen[kk]][::-1]
-                    res.path = _PATH_CHARS[codes].tobytes().decode()
-                    res.lo_a = int(lo_a[kk])
-                    res.lo_b = int(lo_b[kk])
-                    if res.fwd_score >= p.min_fwd_score:
-                        _finish_from_lddt(res, q, t, p, float(lddt[kk]))
-                results[rows[kk]] = res
-        self.stats.update(stage3_pairs=len(pairs), stage3_s=t1 - t0,
-                          stage4_s=t2 - t1,
-                          finish_s=time.perf_counter() - t2)
+        with db.spans.span("finish"):
+            for (chunk, n, rows, *_), ((best, lo_a, lo_b, plen), path_rev), \
+                    lddt in zip(batches, fetched, lddts):
+                for kk in range(n):
+                    q = db.ecs[int(chunk[kk, 0])]
+                    t = db.ecs[int(chunk[kk, 1])]
+                    res = AlignResult(query=q.label, target=t.label,
+                                      fwd_score=float(best[kk]))
+                    if best[kk] > 0:
+                        codes = path_rev[kk, :plen[kk]][::-1]
+                        res.path = _PATH_CHARS[codes].tobytes().decode()
+                        res.lo_a = int(lo_a[kk])
+                        res.lo_b = int(lo_b[kk])
+                        if res.fwd_score >= p.min_fwd_score:
+                            _finish_from_lddt(res, q, t, p, float(lddt[kk]))
+                    results[rows[kk]] = res
         return results
 
 
@@ -319,6 +322,7 @@ def batched_self_search(ecs: List[EncodedChain], params: DSSParams,
     built when ``db`` is None."""
     if db is None:
         db = DeviceDB(ecs, params, with_rev_profiles=False, device=device)
+    db.spans = Spans()
     eng = BatchedEngine(db)
     n = len(ecs)
     iu = np.triu_indices(n)

@@ -68,6 +68,7 @@ from reseek_tpu_torch.ops.sw_align import (FeatureTable, sw_align,
 from reseek_tpu_torch.ops.sw_sweep import (MuTable, mu_sw_scores,
                                            sw_score_sweep, sweep_takes)
 from reseek_tpu_torch.parallel.mesh import MeshLike, as_mesh
+from reseek_tpu_torch.utils.spans import Spans
 
 # Cell budgets of the per-launch device batches (DP cells per launch);
 # environment-overridable to shrink peak device memory.
@@ -272,11 +273,14 @@ class DeviceSelfSearch:
     with_rev_profiles: encode and upload the reversed chains' profiles
     (``build_rev_profiles``), which the self-reversal scores need.
     mesh: a one-process mesh (or a sequence of devices); the work is dealt
-    over its positions, and ``device`` is its first device."""
+    over its positions, and ``device`` is its first device.
+    spans: the calling driver's recorder (utils/spans.py), which the
+    stages' spans and counters add into; by default one of its own."""
 
     def __init__(self, ecs: List[EncodedChain], params: DSSParams,
                  device: DeviceLike = "cuda",
-                 with_rev_profiles: bool = True, mesh: MeshLike = None):
+                 with_rev_profiles: bool = True, mesh: MeshLike = None,
+                 spans: Optional[Spans] = None):
         lens = np.array([len(ec) for ec in ecs], np.int64)
         order = np.argsort(lens, kind="stable")
         edges = _edges_for(params, int(lens.max()) if len(lens) else 1)
@@ -294,7 +298,7 @@ class DeviceSelfSearch:
             mu_rev[s, :ln] = ec.mu_letters[:ln][::-1]
             coords[s, :ln] = ec.chain.coords[:ln]
         self._setup(ecs, params, device, order, edges, prof, mu, mu_rev,
-                    coords, w, offsets, mu_table(), mesh)
+                    coords, w, offsets, mu_table(), mesh, spans)
         if with_rev_profiles:
             self.build_rev_profiles()
 
@@ -302,7 +306,8 @@ class DeviceSelfSearch:
     def from_arrays(cls, ecs: List[EncodedChain], params: DSSParams,
                     device: DeviceLike = "cuda", *, order, edges, prof, mu,
                     mu_rev, coords, w, offsets, mumx,
-                    mesh: MeshLike = None) -> "DeviceSelfSearch":
+                    mesh: MeshLike = None,
+                    spans: Optional[Spans] = None) -> "DeviceSelfSearch":
         """An engine over given device state (numpy arrays, e.g. fetched
         from reseek_tpu's DeviceSelfSearch): sorted order, bucket edges,
         sorted uint8 profiles [N, F, L], Mu letters and reversed letters
@@ -310,11 +315,11 @@ class DeviceSelfSearch:
         the padded Mu table."""
         self = cls.__new__(cls)
         self._setup(ecs, params, device, order, edges, prof, mu, mu_rev,
-                    coords, w, offsets, mumx, mesh)
+                    coords, w, offsets, mumx, mesh, spans)
         return self
 
     def _setup(self, ecs, params, device, order, edges, prof, mu, mu_rev,
-               coords, w, offsets, mumx, mesh) -> None:
+               coords, w, offsets, mumx, mesh, spans) -> None:
         self.mesh = as_mesh(mesh)
         dev = (self.mesh.devices[0] if self.mesh is not None
                else resolve(device))
@@ -356,10 +361,7 @@ class DeviceSelfSearch:
         # a stage-3 chunk's traceback budget, for any device of the mesh
         self.tb_bytes = min(stage3_tb_bytes(d) for d in (
             self.mesh.devices if self.mesh is not None else (dev,)))
-        # host-clock walls of the last stage-1 call, stage-2 prepass and
-        # align_survivors, each read after every device has finished (see
-        # _clock)
-        self.seconds: Dict[str, float] = {}
+        self.spans = spans if spans is not None else Spans()
         # one view of the engine per mesh position; positions on one
         # device share its view, whose device state is that device's
         # replica (the first device's is this engine's own)
@@ -377,6 +379,17 @@ class DeviceSelfSearch:
                        if self.mesh is not None else [self])
         for v in views.values():
             v._views = self._views
+
+    @property
+    def seconds(self) -> Dict[str, float]:
+        """Host-clock walls from ``spans``: ``stage1``, ``stage2`` (the
+        prepasses), ``stage3`` (launch and fetch) and ``finish`` (the host
+        finish), each summed over the recorder's calls of its stage (one
+        call's wall where the stage ran once); the stage spans start and
+        end after every device has finished."""
+        return {k: self.spans.seconds[k]
+                for k in ("stage1", "stage2", "stage3", "finish")
+                if k in self.spans.seconds}
 
     @property
     def mumx(self) -> torch.Tensor:
@@ -428,12 +441,10 @@ class DeviceSelfSearch:
                 got[k] = x
         return got
 
-    def _clock(self) -> float:
-        """Host clock after every device's queued work has finished."""
-        for d in {v.device for v in self._views}:
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
-        return time.perf_counter()
+    def _stage(self, name: str):
+        """The span of a device stage: it starts and ends after every
+        device's queued work has finished."""
+        return self.spans.span(name, sync={v.device for v in self._views})
 
     def _device_ranges(self):
         """(bucket_index, s0, s1) for each bucket's device-eligible
@@ -517,33 +528,34 @@ class DeviceSelfSearch:
         """(i, j) ORIGINAL-index pairs (i <= j) passing the Mu filter, for
         all pairs with both chains below mkfl.  With omega == 0 the filter
         is off and all such pairs survive (src/dssaligner.cpp:819-828)."""
-        t0 = self._clock()
         dev = self._device_ranges()
         pair_chunks = []
-        if self.params.omega <= 0:
-            for ai, a0, a1 in dev:
-                for bi_, b0, b1 in dev:
-                    if bi_ < ai:
-                        continue
-                    ia, ib = np.meshgrid(np.arange(a0, a1),
-                                         np.arange(b0, b1), indexing="ij")
-                    keep = ib >= ia
-                    pair_chunks.append(np.stack([ia[keep], ib[keep]], axis=1))
-        else:
-            # block k on mesh position k mod size; all launched, then
-            # fetched
-            blocks, masks = [], []
-            for (lea, leb, ca, cb), starts in self.stage1_block_plan().items():
-                for ba, bb, a1, b1 in starts:
-                    masks.append(self._view(len(masks))._stage1_block(
-                        lea, leb, ca, cb, ba, bb, a1, b1))
-                    blocks.append((ba, bb, ca, cb))
-            for (ba, bb, ca, cb), mask in zip(blocks, self._fetch(masks)):
-                ia_r, ib_r = np.nonzero(mask.reshape(ca, cb))
-                if len(ia_r):
-                    pair_chunks.append(np.stack([ba + ia_r, bb + ib_r],
-                                                axis=1))
-        self.seconds["stage1"] = self._clock() - t0
+        with self._stage("stage1"):
+            if self.params.omega <= 0:
+                for ai, a0, a1 in dev:
+                    for bi_, b0, b1 in dev:
+                        if bi_ < ai:
+                            continue
+                        ia, ib = np.meshgrid(np.arange(a0, a1),
+                                             np.arange(b0, b1), indexing="ij")
+                        keep = ib >= ia
+                        pair_chunks.append(np.stack([ia[keep], ib[keep]],
+                                                    axis=1))
+            else:
+                # block k on mesh position k mod size; all launched, then
+                # fetched
+                blocks, masks = [], []
+                for (lea, leb, ca, cb), starts in (
+                        self.stage1_block_plan().items()):
+                    for ba, bb, a1, b1 in starts:
+                        masks.append(self._view(len(masks))._stage1_block(
+                            lea, leb, ca, cb, ba, bb, a1, b1))
+                        blocks.append((ba, bb, ca, cb))
+                for (ba, bb, ca, cb), mask in zip(blocks, self._fetch(masks)):
+                    ia_r, ib_r = np.nonzero(mask.reshape(ca, cb))
+                    if len(ia_r):
+                        pair_chunks.append(np.stack([ba + ia_r, bb + ib_r],
+                                                    axis=1))
         if not pair_chunks:
             return np.zeros((0, 2), np.int64)
         sp = np.concatenate(pair_chunks)
@@ -595,26 +607,27 @@ class DeviceSelfSearch:
         drivers that bring their own pair lists (query-vs-DB, the -fast
         stage 2).  Rectangular edges as in stage 3; fwd and rev pairs run
         as one [2B] kernel batch."""
-        t0 = self._clock()
         p = self.params
         out = np.zeros(len(pairs_orig), np.float32)
         if len(pairs_orig) == 0:
             return out
         o, e = -float(p.para_mu_gap_open), -float(p.para_mu_gap_ext)
-        jobs = []
-        for rr, v, a, b in self.stage1_pair_letters(pairs_orig):
-            jobs.append((rr, mu_sw_scores(a, b, v.mu_table, o, e)))
-        for (rr, _), both in zip(jobs, self._fetch([x for _, x in jobs])):
-            n = len(rr)
-            fwd = both[:n].copy()
-            rev = both[n:].copy()
-            # parasail 8-bit saturation (align/pipeline.py MU_SAT_* notes)
-            fwd[fwd > MU_SAT_LIMIT] = MU_SAT_SCORE
-            rev[rev > MU_SAT_LIMIT] = MU_SAT_REV_SCORE
-            val = fwd - rev
-            val[fwd < np.float32(p.omega_fwd)] = 0.0
-            out[rr] = val
-        self.seconds["stage1"] = self._clock() - t0
+        with self._stage("stage1"):
+            jobs = []
+            for rr, v, a, b in self.stage1_pair_letters(pairs_orig):
+                jobs.append((rr, mu_sw_scores(a, b, v.mu_table, o, e)))
+            for (rr, _), both in zip(jobs,
+                                     self._fetch([x for _, x in jobs])):
+                n = len(rr)
+                fwd = both[:n].copy()
+                rev = both[n:].copy()
+                # parasail 8-bit saturation (align/pipeline.py MU_SAT_*
+                # notes)
+                fwd[fwd > MU_SAT_LIMIT] = MU_SAT_SCORE
+                rev[rev > MU_SAT_LIMIT] = MU_SAT_REV_SCORE
+                val = fwd - rev
+                val[fwd < np.float32(p.omega_fwd)] = 0.0
+                out[rr] = val
         return out
 
     # -- stage 2: score-only full-profile SW -----------------------------
@@ -653,27 +666,26 @@ class DeviceSelfSearch:
         most SWEEP_MAX_LB columns (ops/sw_sweep.sweep_takes): a longer
         chunk gets the exact score, the value STAGE2_GUARD's band holds
         the sweep's to."""
-        t0 = self._clock()
         p = self.params
         out = np.zeros(len(pairs_orig), np.float32)
         if len(pairs_orig) == 0:
             return out
-        if b_side_rev:
-            self.build_rev_profiles()
-        go, ge = float(p.gap_open), float(p.gap_ext)
-        jobs = []
-        for le, rr in self._stage2_chunks(pairs_orig):
-            v = self._view(len(jobs))
-            ia = v._sorted_idx(pairs_orig[rr, 0])
-            ib = v._sorted_idx(pairs_orig[rr, 1])
-            prof_b = v.prof_rev if b_side_rev else v.prof
-            score = (sw_score_sweep if not exact and sweep_takes(le)
-                     else sw_score_profiles)
-            jobs.append((rr, score(v.prof, prof_b, ia, ib, v.table, le, le,
-                                   go, ge)))
-        for (rr, _), sc in zip(jobs, self._fetch([x for _, x in jobs])):
-            out[rr] = sc
-        self.seconds["stage2"] = self._clock() - t0
+        with self._stage("stage2"):
+            if b_side_rev:
+                self.build_rev_profiles()
+            go, ge = float(p.gap_open), float(p.gap_ext)
+            jobs = []
+            for le, rr in self._stage2_chunks(pairs_orig):
+                v = self._view(len(jobs))
+                ia = v._sorted_idx(pairs_orig[rr, 0])
+                ib = v._sorted_idx(pairs_orig[rr, 1])
+                prof_b = v.prof_rev if b_side_rev else v.prof
+                score = (sw_score_sweep if not exact and sweep_takes(le)
+                         else sw_score_profiles)
+                jobs.append((rr, score(v.prof, prof_b, ia, ib, v.table, le,
+                                       le, go, ge)))
+            for (rr, _), sc in zip(jobs, self._fetch([x for _, x in jobs])):
+                out[rr] = sc
         return out
 
     # -- self-reversal scores (src/alignpair.cpp:7-25), device part ------
@@ -807,22 +819,22 @@ class DeviceSelfSearch:
                                    evalue_gate)
         if len(pairs_orig) == 0:
             return results
-        t0 = self._clock()
-        # launch every chunk (chunk k on mesh position k mod size), then
-        # fetch: the devices run ahead of the host
-        jobs = []
-        for lea, leb, chunk in self._stage3_chunks(pairs_orig):
-            v = self._view(len(jobs))
-            jobs.append((chunk, v._stage3_chunk(
-                lea, leb, v._sorted_idx(chunk[:, 0]),
-                v._sorted_idx(chunk[:, 1]), self.m_cap(chunk))))
-        fetched = [(chunk, {k: v.cpu().numpy() for k, v in out.items()})
-                   for chunk, out in jobs]
-        t1 = self._clock()
-        for chunk, host in fetched:
-            self._finish(chunk, host, results, evalue_gate, fwd_displayed)
-        self.seconds["stage3"] = t1 - t0
-        self.seconds["finish"] = time.perf_counter() - t1
+        self.spans.count("stage3_pairs", len(pairs_orig))
+        with self._stage("stage3"):
+            # launch every chunk (chunk k on mesh position k mod size),
+            # then fetch: the devices run ahead of the host
+            jobs = []
+            for lea, leb, chunk in self._stage3_chunks(pairs_orig):
+                v = self._view(len(jobs))
+                jobs.append((chunk, v._stage3_chunk(
+                    lea, leb, v._sorted_idx(chunk[:, 0]),
+                    v._sorted_idx(chunk[:, 1]), self.m_cap(chunk))))
+            fetched = [(chunk, {k: v.cpu().numpy() for k, v in out.items()})
+                       for chunk, out in jobs]
+        with self.spans.span("finish"):
+            for chunk, host in fetched:
+                self._finish(chunk, host, results, evalue_gate,
+                             fwd_displayed)
         return results
 
     def _finish(self, chunk: np.ndarray, r: Dict[str, np.ndarray],
@@ -872,28 +884,33 @@ class DeviceSelfSearch:
             _, _, ev_hh = _vector_stats(best + fband, lddt + band, sa, sb,
                                         la_v, lb_v)
             skip = ev_hh > evalue_gate
-        for kk in range(n):
-            if skip[kk]:
-                continue
-            if ("%.3g" % pvl_lo[kk] != "%.3g" % pvl_hi[kk]
-                    or "%.3g" % evl_lo[kk] != "%.3g" % evl_hi[kk]
-                    or "%.3g" % tsl_lo[kk] != "%.3g" % tsl_hi[kk]
-                    or "%.4g" % np.float32(lddt[kk] - band)
-                    != "%.4g" % np.float32(lddt[kk] + band)):
-                lddt_rec[kk] = True
-            if ("%.3g" % pvf_lo[kk] != "%.3g" % pvf_hi[kk]
-                    or "%.3g" % evf_lo[kk] != "%.3g" % evf_hi[kk]
-                    or "%.3g" % tsf_lo[kk] != "%.3g" % tsf_hi[kk]):
-                fwd_rec[kk] = True
-            elif fwd_displayed and (
-                    # dpscore %.4g / raw %.3g display boundaries
-                    # (align/output.py:140-142)
-                    "%.4g" % np.float32(best[kk] - fband[kk])
-                    != "%.4g" % np.float32(best[kk] + fband[kk])
-                    or "%.3g" % np.float32(best[kk] - fband[kk])
-                    != "%.3g" % np.float32(best[kk] + fband[kk])):
-                fwd_rec[kk] = True
+        with self.spans.span("finish.bands"):
+            for kk in range(n):
+                if skip[kk]:
+                    continue
+                if ("%.3g" % pvl_lo[kk] != "%.3g" % pvl_hi[kk]
+                        or "%.3g" % evl_lo[kk] != "%.3g" % evl_hi[kk]
+                        or "%.3g" % tsl_lo[kk] != "%.3g" % tsl_hi[kk]
+                        or "%.4g" % np.float32(lddt[kk] - band)
+                        != "%.4g" % np.float32(lddt[kk] + band)):
+                    lddt_rec[kk] = True
+                if ("%.3g" % pvf_lo[kk] != "%.3g" % pvf_hi[kk]
+                        or "%.3g" % evf_lo[kk] != "%.3g" % evf_hi[kk]
+                        or "%.3g" % tsf_lo[kk] != "%.3g" % tsf_hi[kk]):
+                    fwd_rec[kk] = True
+                elif fwd_displayed and (
+                        # dpscore %.4g / raw %.3g display boundaries
+                        # (align/output.py:140-142)
+                        "%.4g" % np.float32(best[kk] - fband[kk])
+                        != "%.4g" % np.float32(best[kk] + fband[kk])
+                        or "%.3g" % np.float32(best[kk] - fband[kk])
+                        != "%.3g" % np.float32(best[kk] + fband[kk])):
+                    fwd_rec[kk] = True
         ts, pv, ev = _vector_stats(best, lddt, sa, sb, la_v, lb_v)
+        # the pairs that get a result; the exact host recomputes among them
+        # are timed one by one (a minority of pairs)
+        self.spans.count("finish_pairs", int(((best > 0) & ~skip).sum()))
+        rec_n, rec_s = 0, 0.0
         for kk in range(n):
             if best[kk] <= 0 or skip[kk]:
                 # no alignment, or best-case E above the emit gate
@@ -906,7 +923,9 @@ class DeviceSelfSearch:
                 fwd_score=float(best[kk]), lo_a=int(lo_a[kk]),
                 lo_b=int(lo_b[kk]), path=path)
             gate_fwd = np.float32(best[kk])
+            t0 = None
             if fwd_rec[kk]:
+                t0 = time.perf_counter()
                 gate_fwd = np.float32(_exact_fwd_score(
                     p, self.ecs[i].profile, self.ecs[j].profile))
                 res.fwd_score = float(gate_fwd)
@@ -918,11 +937,15 @@ class DeviceSelfSearch:
                 if lddt_rec[kk] or fwd_rec[kk]:
                     lddt_val = np.float32(lddt[kk])
                     if lddt_rec[kk]:
+                        t0 = time.perf_counter() if t0 is None else t0
                         pos_q, pos_t = _path_positions(res.lo_a, res.lo_b,
                                                        path)
                         lddt_val = np.float32(lddt_mu_fast(
                             self.ecs[i].chain.coords,
                             self.ecs[j].chain.coords, pos_q, pos_t))
+                    if t0 is not None:
+                        rec_n += 1
+                        rec_s += time.perf_counter() - t0
                     tse, pve, eve = _vector_stats(
                         np.float32([gate_fwd]), np.float32([lddt_val]),
                         sa[kk:kk + 1], sb[kk:kk + 1],
@@ -937,4 +960,9 @@ class DeviceSelfSearch:
                     res.pvalue = float(pv[kk])
                     res.evalue = float(ev[kk])
                 res.qual = StatSig.qual(res.ts)
+            elif t0 is not None:
+                rec_n += 1
+                rec_s += time.perf_counter() - t0
             results[(i, j)] = res
+        self.spans.count("recomputed_pairs", rec_n)
+        self.spans.add("finish.recompute", rec_s)

@@ -18,6 +18,7 @@ from reseek_tpu.search.engine import STAGE2_GUARD, _exact_fwd_score
 from reseek_tpu_torch.ops import sw_sweep as sweep_mod
 from reseek_tpu_torch.search import engine as engine_mod
 from reseek_tpu_torch.search.engine import DeviceSelfSearch
+from reseek_tpu_torch.utils.spans import Spans
 
 from test_torch_engine import Q100
 
@@ -152,11 +153,11 @@ def test_prepasses_keep_every_emitted_row(setup, monkeypatch):
     gate = 10.0
     plain = port.align_survivors(pairs, evalue_gate=gate)
     emitted = {k for k, r in plain.items() if r.evalue <= gate}
-    port.seconds.clear()
+    port.spans = Spans()     # the next call's stages alone
     pre = port.align_survivors(pairs, fwd_prefilter=True,
                                evalue_gate=gate)
     assert "stage2" in port.seconds
-    port.seconds.clear()
+    port.spans = Spans()     # the next call's stages alone
     monkeypatch.setenv("RESEEK_E_PREPASS_MIN", "1")
     epre = port.align_survivors(pairs, evalue_gate=gate)
     assert "stage2" in port.seconds
