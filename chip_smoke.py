@@ -17,6 +17,7 @@ Run from the repository root on a machine with a CUDA card:
                                           # times in the tree at DIR
     python3 chip_smoke.py --bands     # phases 0-1, the band kernel's rules
     python3 chip_smoke.py --mu-bands  # phases 0-1, the Mu band kernel's
+    python3 chip_smoke.py --fwd-exact # phases 0-1, then phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -134,6 +135,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      entries' times (the band SW entries, mu_sweep_long, lddt_long) in
      the tree at DIR and in this one, each in a subprocess, their outputs
      bit-equal.
+ 14. the forward score the host finish takes as exact (phase_fwd_exact):
+     one job of the benchmark's scop40.fast cell (512 domains drawn by
+     portbench's generator from FWD_EXACT_SEED) through self_search on
+     the card;
+     on every one of its stage-3 pairs, those the E-gate skips included,
+     the SW kernels' score must equal the host SW (_exact_fwd_score) bit
+     for bit; the pairs compared, the finish's recomputes and walls.
 --bands times the band kernel against the shared-memory kernel, and its
 R = 4 against R = 8, at BAND_SHAPES (phase_bands), the rules of
 ops/sw_align.py's sw_align_uses_bands and rows_per_lane; --mu-bands the
@@ -265,6 +273,10 @@ LONG_OMEGA = 12.0
 # take the band kernel (phase_mu_bands adds them from its block plan)
 MU_BAND_SHAPES = ((2, 12032, 12032), (1, 12032, 12032), (2, 4096, 4096),
                   (2, 8192, 8192), (8, 2048, 8192))
+# phase 14: the benchmark cell one of whose jobs the forward-score gate
+# compares, and the seed of the job's draw
+FWD_EXACT_CELL = "scop40.fast"
+FWD_EXACT_SEED = 3180001001
 # the native host code, built with g++ at first use (module of the port,
 # its loader _lib)
 NATIVE = ("encoder.native", "align.mkf_native", "ops.lddt", "ops.sw_native",
@@ -2957,6 +2969,65 @@ def long_entries(res: dict, launches: dict) -> list:
             for k, (src, rep, run) in LONG_KERNELS.items()]
 
 
+def phase_fwd_exact() -> None:
+    """[14] The host finish displays and gates on stage 3's forward score
+    as it is: on every stage-3 pair of one FWD_EXACT_CELL job drawn from
+    FWD_EXACT_SEED, the CUDA SW score must equal the host SW's bit for
+    bit."""
+    from portbench.harness import Bench, kind_module
+    from reseek_tpu_torch.chain import Chain
+    from reseek_tpu_torch.constants import DSSParams
+    from reseek_tpu_torch.search import driver, host
+    from reseek_tpu_torch.search.engine import (DeviceSelfSearch,
+                                                _exact_fwd_score)
+    cell = Bench(ROOT).cell(FWD_EXACT_CELL)
+    kind = kind_module(cell["traffic"])
+    wl = kind.Workload(cell["config"], cell["traffic"], FWD_EXACT_SEED,
+                       DEVICE)
+    chains = wl.pool.chains(Chain, wl.next_call())
+    params = DSSParams.create(wl.mode)
+    seen = []
+    finish = DeviceSelfSearch._finish
+
+    def record(self, chunk, r, *args):
+        seen.append((self.ecs, chunk, r["best"]))
+        return finish(self, chunk, r, *args)
+
+    DeviceSelfSearch._finish = record
+    try:
+        with Launches() as launched:
+            t0 = time.perf_counter()
+            drv = driver.self_search(
+                chains, params, kind.options_for(wl.mode, wl.columns, host),
+                io.StringIO(), engine="device", device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        DeviceSelfSearch._finish = finish
+    launched.require(["sw_align"], f"the {FWD_EXACT_CELL} job")
+    pairs = [(ecs[i], ecs[j]) for ecs, chunk, _ in seen for i, j in chunk]
+    got = np.concatenate([best for _, _, best in seen]).astype(np.float32)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 2) as tp:
+        exact = np.float32(list(tp.map(lambda p: _exact_fwd_score(
+            params, p[0].profile, p[1].profile), pairs)))
+    host_s = time.perf_counter() - t0
+    differ = int((got != exact).sum())
+    st = drv.device_stats
+    print(f"[14] {FWD_EXACT_CELL} job of {len(chains)} domains (seed "
+          f"{FWD_EXACT_SEED}): {len(pairs)} stage-3 pairs compared with the host SW "
+          f"({host_s:.2f} s), {differ} differ; wall {wall:.2f} s, "
+          f"finish {st['finish_s']:.3f} s, {st['recomputed_pairs']} of "
+          f"{st['finish_pairs']} result pairs recomputed "
+          f"({st['finish_recompute_s']:.3f} s); sw_align launches "
+          f"{launched.counts['sw_align']}")
+    if len(pairs) != st["stage3_pairs"]:
+        fail(f"phase 14 saw {len(pairs)} of {st['stage3_pairs']} stage-3 "
+             f"pairs")
+    if differ:
+        fail(f"{differ} stage-3 forward scores differ from the host SW")
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -3024,6 +3095,11 @@ def main() -> int:
         # shared-memory kernel and R = 4 against R = 8
         phase_mu_bands(chains)
         return 0
+    if sys.argv[1:] == ["--fwd-exact"]:
+        # phases 0-1, then the stage-3 forward scores of a benchmark job
+        # against the host SW
+        phase_fwd_exact()
+        return 0
     if sys.argv[1:] == ["--stage1"]:
         # phases 0-1, then the replica's stage 1 alone (to compare two
         # versions of the Mu filter in one call)
@@ -3071,6 +3147,7 @@ def main() -> int:
     launches["legacy"] = phase_legacy(chains, db)
     print(f"[12] phase 12: {time.perf_counter() - t12:.1f} s")
     long_res, long_launches = phase_long(chains)
+    phase_fwd_exact()
     print(f"[end] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
 

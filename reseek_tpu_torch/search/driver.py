@@ -37,8 +37,7 @@ from reseek_tpu_torch.parallel.mesh import MeshLike, as_mesh
 from reseek_tpu_torch.search import host
 from reseek_tpu_torch.search.engine import DeviceSelfSearch
 from reseek_tpu_torch.search.host import (SearchDriver, SearchOptions,
-                                          _encode_all, _fwd_displayed,
-                                          _maybe_trace)
+                                          _encode_all, _maybe_trace)
 from reseek_tpu_torch.search.prefilter import prefilter_search
 from reseek_tpu_torch.utils.spans import Spans
 
@@ -87,7 +86,7 @@ def self_search(chains: List[Chain], params: DSSParams,
     (``wall_s``) and of its parts, encode and upload (``encode_s``), stage
     1 (``stage1_s``), the wait on the pool's self-rev scores
     (``selfrev_wait_s``), stage 3's launch and fetch (``stage3_s``), the
-    host finish (``finish_s``; of it the display-band checks,
+    host finish (``finish_s``; of it the LDDT band checks,
     ``finish_bands_s``, and the exact host recomputes,
     ``finish_recompute_s``), the wait on the MKF pairs (``mkf_wait_s``)
     and the output (``emit_s``: muscore backfill, sort, rows); and the
@@ -161,8 +160,7 @@ def _self_search_device(chains: List[Chain], params: DSSParams,
         need_all = _need_all(options)
         by_pair = pipe.align_survivors(
             survivors, need_all_paths=need_all,
-            evalue_gate=None if need_all else options.max_evalue,
-            fwd_displayed=_fwd_displayed(options))
+            evalue_gate=None if need_all else options.max_evalue)
         with spans.span("mkf_wait"):
             for a, b, f in mkf_futs:
                 res = f.result()
@@ -318,8 +316,7 @@ def _query_search_device(queries: List[Chain], db_iter, params: DSSParams,
                         for a, b in long_pairs]
             dev_results = pipe.align_survivors(
                 dev_pairs, need_all_paths=need_all,
-                evalue_gate=None if need_all else options.max_evalue,
-                fwd_displayed=_fwd_displayed(options))
+                evalue_gate=None if need_all else options.max_evalue)
             spans.count("chunks")
             # the stage-1 values, keyed (DB, query) as the pairs ran; the
             # long pairs keep the host aligner's
@@ -556,8 +553,7 @@ def _fast_align_device(drv: SearchDriver, q_ecs: List[EncodedChain],
                         for a, b in pairs[is_long]]
             by_pair = pipe.align_survivors(
                 dev_pairs, need_all_paths=need_all,
-                evalue_gate=None if need_all else options.max_evalue,
-                fwd_displayed=_fwd_displayed(options))
+                evalue_gate=None if need_all else options.max_evalue)
             spans.count("chunks")
             with spans.span("mkf_wait"):
                 for a, b, f in mkf_futs:

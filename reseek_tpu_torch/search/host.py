@@ -146,12 +146,6 @@ class SearchDriver:
         return res
 
 
-def _fwd_displayed(options: "SearchOptions") -> bool:
-    """Whether output will display the raw forward score (dpscore/raw
-    columns) — controls the engine's display-boundary recompute check."""
-    return any(c in ("dpscore", "raw") for c in options.columns)
-
-
 def self_search(chains: List[Chain], params: DSSParams,
                 options: SearchOptions, out: TextIO) -> SearchDriver:
     """All-vs-all (src/runself.cpp): pairs (i, j >= i), self pair emitted

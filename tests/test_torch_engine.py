@@ -102,14 +102,17 @@ def test_align_survivors_match(setup):
     """Same hits, paths and coordinates as the JAX engine; forward scores
     equal the exact host SW bit for bit (gather-sum smx) and the JAX
     engine's one-hot-matmul scores within its 2e-5 relative band; LDDT
-    and E-values agree within the engine's bands."""
+    and E-values agree within the engine's bands.  The port's E-gate
+    skip bounds a ``risky`` LDDT at 1, the JAX engine's at its band, so
+    the port may keep more pairs: each past the gate."""
     params, ecs, jax_eng, port = setup
     surv = port.stage1_survivors()
     got = port.align_survivors(surv, evalue_gate=10.0)
     want = jax_eng.align_survivors(surv, evalue_gate=10.0)
-    assert got.keys() == want.keys() and len(got) > 20
-    for key, r in got.items():
-        w = want[key]
+    assert got.keys() >= want.keys() and len(want) > 20
+    assert all(got[k].evalue > 10.0 for k in got.keys() - want.keys())
+    for key, w in want.items():
+        r = got[key]
         assert (r.query, r.target, r.path, r.lo_a, r.lo_b, r.hi_a, r.hi_b,
                 r.ids, r.gaps) == (w.query, w.target, w.path, w.lo_a,
                                    w.lo_b, w.hi_a, w.hi_b, w.ids, w.gaps)

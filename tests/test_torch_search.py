@@ -58,15 +58,17 @@ def test_slice_matches_host_and_jax_device_engine(subset):
     assert {"encode_s", "stage1_s", "stage3_s", "finish_s"} <= stats.keys()
 
 
-def test_display_columns_match_host(subset):
-    """Raw-score, LDDT, TS and muscore columns: the display-band
-    recompute and the muscore backfill paths."""
-    cols = "std+evalue+ts+dpscore+lddt+muscore+ids+gaps"
-    got, _ = _search(torch_driver.self_search, subset[:10], columns=cols,
-                     engine="device", device="cpu")
-    host, _ = _search(tpu_driver.self_search, subset[:10], columns=cols,
-                      engine="host")
-    assert got == host
+@pytest.mark.parametrize("mode", ["fast", "sensitive"])
+def test_display_columns_match_host(subset, mode):
+    """Raw-score (dpscore %.4g, raw %.3g), LDDT, TS, P and muscore
+    columns: the forward score displayed as stage 3 gives it, the LDDT
+    band recompute and the muscore backfill paths."""
+    cols = "std+evalue+ts+dpscore+raw+pvalue+lddt+muscore+ids+gaps"
+    got, _ = _search(torch_driver.self_search, subset[:10], mode=mode,
+                     columns=cols, engine="device", device="cpu")
+    host, _ = _search(tpu_driver.self_search, subset[:10], mode=mode,
+                      columns=cols, engine="host")
+    assert got == host and len(got.splitlines()) > 20
 
 
 def test_verysensitive_matches_host():
